@@ -4,13 +4,16 @@ BASELINE.json north star: >= 80% weak-scaling efficiency 1 -> N (rows grow
 with devices; per-device work constant; the only growth is the w-element
 halo ppermute + the psum latency).
 
-On this round's hardware (one real TPU chip) the harness runs on the forced
-virtual CPU mesh — useful to validate the *code path* and the efficiency
-accounting, not the ICI numbers.  On a real slice, run:
+On the GPUs of one host:
 
-    python benchmarks/weak_scaling.py --devices 1 2 4 8 --rows-per-dev 1000000
+    python benchmarks/weak_scaling.py --platform gpu --devices 1 2 4 \
+        --rows-per-dev 1000000 --engine stencil
 
-and efficiency = t(1 dev) / t(N dev) for fixed rows/device.
+and efficiency = t(1 dev) / t(N dev) for fixed rows/device.  On the forced
+virtual CPU mesh (``--platform cpu`` with
+``XLA_FLAGS=--xla_force_host_platform_device_count=N``) it validates the code
+path and the efficiency accounting only; those times are not device
+numbers.
 """
 
 from __future__ import annotations
@@ -34,15 +37,16 @@ def main(argv=None):
     p.add_argument("--iters", type=int, default=50,
                    help="chained SpMV applications per timing")
     p.add_argument("--dtype", default="float32")
-    p.add_argument("--platform", default=None,
-                   help="force cpu (with XLA_FLAGS device count) or tpu")
+    p.add_argument("--platform", choices=["gpu", "cpu"], default=None,
+                   help="run on this JAX platform (cpu: with the XLA_FLAGS"
+                        " virtual device count)")
     p.add_argument("--solve", action="store_true",
                    help="also time a fixed-iteration distributed solve")
-    p.add_argument("--engine", choices=["xla", "pallas", "stencil"],
+    p.add_argument("--engine", choices=["xla", "stencil"],
                    default="xla",
                    help="per-shard SpMV engine; 'stencil' generates a 2-D"
                         " grid Laplacian (row length = --grid-cols) and runs"
-                        " the gap-strided flagship kernel")
+                        " the gap-strided matrix-free stencil")
     p.add_argument("--grid-cols", type=int, default=100)
     args = p.parse_args(argv)
 
@@ -55,14 +59,20 @@ def main(argv=None):
     import jax.numpy as jnp
     import numpy as np
 
-    from cuda_mat_tpu.formats.dia import DIAMatrix
-    from cuda_mat_tpu.parallel.mesh import make_mesh
-    from cuda_mat_tpu.parallel.partition import (RowPartitionedBanded,
-                                                 RowPartitionedStencil)
-    from cuda_mat_tpu.parallel.dist_solver import (_pallas_blocks,
-                                                   make_dist_spmv)
+    from cuda_mat.formats.dia import DIAMatrix
+    from cuda_mat.ops.selection import check_platform
+    from cuda_mat.parallel.mesh import make_mesh
+    from cuda_mat.parallel.partition import (RowPartitionedBanded,
+                                             RowPartitionedStencil)
+    from cuda_mat.parallel.dist_solver import make_dist_spmv
+    from cuda_mat.utils.compile_cache import enable_compile_cache
 
-    interpret = jax.default_backend() != "tpu"
+    platform = check_platform()
+    if args.platform and platform != args.platform:
+        raise SystemExit(f"platform {args.platform} requested, but JAX runs"
+                         f" on {platform}")
+    enable_compile_cache()
+    dev = jax.devices()[0]
 
     navail = len(jax.devices())
     results = []
@@ -95,14 +105,10 @@ def main(argv=None):
         mesh = make_mesh(ndev)
         if args.engine == "stencil":
             part = RowPartitionedStencil.from_matrix(dia, ndev)
-        elif args.engine == "pallas":
-            part = RowPartitionedBanded.from_matrix(
-                dia, ndev, align=_pallas_blocks(w, interpret)[0])
         else:
             part = RowPartitionedBanded.from_matrix(dia, ndev)
         fn, put = make_dist_spmv(part, mesh, dtype=jnp.dtype(args.dtype),
-                                 local_engine=args.engine,
-                                 interpret=interpret)
+                                 local_engine=args.engine)
         x = put(np.ones(n))
         # chained applications; scale keeps iterates bounded
         @jax.jit
@@ -129,6 +135,9 @@ def main(argv=None):
     print(json.dumps({"metric": "weak_scaling_efficiency",
                       "value": results[-1]["weak_efficiency"] if results else 0,
                       "unit": "t1/tN @ fixed rows/dev",
+                      "device": {"platform": dev.platform,
+                                 "kind": dev.device_kind,
+                                 "count": len(jax.devices())},
                       "configs": results}))
 
 

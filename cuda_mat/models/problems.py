@@ -1,0 +1,175 @@
+"""Workload generators and named fixtures — the framework's "model families".
+
+Replicates every workload the reference defines:
+
+- random sparse CSR (reference ``gen_rand_csr_matrix``, pbicgstab.h:33-55)
+- random vectors (reference ``gen_rand_vector``, pbicgstab.cu:1093-1097)
+- the CLI's diagonally-nonzero random system (reference example.cpp:274-286)
+- 2-D finite-difference Laplacians generalizing the mat900 (9-point, 30×30
+  grid, diag 8) and mat10000 (5-point, 100×100 grid, diag 4) fixtures
+  (reference mat900.mtx:1-7, mat10000.mtx:1-5) — these scale to the 1M / 10M
+  row distributed benchmark configs.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Tuple
+
+import numpy as np
+
+from cuda_mat.formats.coo import COOMatrix
+from cuda_mat.formats.csr import CSRMatrix
+
+_DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.dirname(os.path.abspath(__file__)))), "data")
+
+
+def fixture_path(name: str) -> str:
+    """Path of a bundled ``.mtx`` fixture (mat3, vec3, mat3_A0, vec3_d,
+    mat900, mat10000)."""
+    p = os.path.join(_DATA_DIR, name if name.endswith(".mtx") else name + ".mtx")
+    if not os.path.exists(p):
+        raise FileNotFoundError(p)
+    return p
+
+
+def gen_rand_csr_matrix(n: int, m: int, probability_of_zero: float,
+                        vmin: float, vmax: float, eps: float = 1e-2,
+                        seed: int = 0) -> CSRMatrix:
+    """Random sparse matrix: each entry is zero with probability p, else
+    uniform in [vmin, vmax] re-drawn until |v| >= eps (reference
+    pbicgstab.h:33-55).  Vectorized numpy instead of the reference's
+    per-element rand() loop."""
+    rng = np.random.default_rng(seed)
+    keep = rng.random((n, m)) > probability_of_zero
+    rows, cols = np.nonzero(keep)
+    vals = rng.uniform(vmin, vmax, size=rows.shape[0])
+    small = np.abs(vals) < eps
+    while small.any():
+        vals[small] = rng.uniform(vmin, vmax, size=int(small.sum()))
+        small = np.abs(vals) < eps
+    return CSRMatrix.from_coo(COOMatrix(n, m, rows, cols, vals))
+
+
+def gen_rand_vector(n: int, probability_of_zero: float, vmin: float,
+                    vmax: float, seed: int = 0) -> np.ndarray:
+    """Random dense vector with zero probability (reference
+    pbicgstab.cu:1093-1097)."""
+    rng = np.random.default_rng(seed)
+    v = rng.uniform(vmin, vmax, size=n)
+    v[rng.random(n) <= probability_of_zero] = 0.0
+    return v
+
+
+def random_diag_nonzero_system(n: int, prob_of_zero: float = 0.99,
+                               seed: int = 0) -> Tuple[CSRMatrix, np.ndarray]:
+    """The CLI's default random system: off-diagonal entries are nonzero with
+    probability (1-p) in [1,10]; the diagonal is always nonzero in [1,10]
+    (reference example.cpp:274-286); b is random in [1,5] with P(zero)=0.2
+    (reference example.cpp:174,339)."""
+    rng = np.random.default_rng(seed)
+    keep = rng.random((n, n)) >= prob_of_zero
+    np.fill_diagonal(keep, True)
+    rows, cols = np.nonzero(keep)
+    vals = rng.uniform(1.0, 10.0, size=rows.shape[0])
+    a = CSRMatrix.from_coo(COOMatrix(n, n, rows, cols, vals))
+    b = gen_rand_vector(n, 0.2, 1.0, 5.0, seed=seed + 1)
+    return a, b
+
+
+def split_form(csr: CSRMatrix):
+    """Decompose ``A = A0 + diag(d)``: returns ``(A0, d)`` with A0 = A minus
+    its stored diagonal.  The algebraic identity the reference's paired
+    fixtures encode (mat3 = mat3_A0 + diag(vec3_d); reference mat3_A0.mtx:7,
+    vec3_d.mtx:7-9), generalized to any square matrix so the split-form
+    solver entry point (pbicgstab.cu:926-1088) can be exercised on every
+    workload."""
+    if csr.n != csr.m:
+        raise ValueError("split_form requires a square matrix")
+    coo = csr.to_coo()
+    off = coo.rows != coo.cols
+    d = np.zeros(csr.n, dtype=csr.data.dtype)
+    d[coo.rows[~off]] = coo.data[~off]
+    a0 = CSRMatrix.from_coo(COOMatrix(csr.n, csr.m, coo.rows[off],
+                                      coo.cols[off], coo.data[off]))
+    return a0, d
+
+
+def grid_laplacian(r: int, c: int) -> CSRMatrix:
+    """5-point 2-D Laplacian on an ``r × c`` grid: n = r·c, diag 4,
+    off-diagonals −1 at offsets ±1 (broken at grid-row boundaries) and ±c.
+    The rectangular generalization of :func:`banded_laplacian`;
+    ``grid_laplacian(10000, 100)`` is the 1M-row narrow-band bench config."""
+    n = r * c
+    idx = np.arange(n, dtype=np.int64)
+    rows = [idx]
+    cols = [idx]
+    data = [np.full(n, 4.0)]
+    # ±1 neighbors, skipped across grid-row boundaries
+    left = idx[idx % c != 0]
+    rows += [left, left - 1]
+    cols += [left - 1, left]
+    data += [np.full(left.shape[0], -1.0)] * 2
+    # ±c neighbors
+    up = idx[idx >= c]
+    rows += [up, up - c]
+    cols += [up - c, up]
+    data += [np.full(up.shape[0], -1.0)] * 2
+    return CSRMatrix.from_coo(COOMatrix(
+        n, n, np.concatenate(rows), np.concatenate(cols), np.concatenate(data)))
+
+
+def banded_laplacian(side: int) -> CSRMatrix:
+    """5-point 2-D Laplacian on a ``side × side`` grid (see
+    :func:`grid_laplacian`).  ``banded_laplacian(100)`` reproduces the
+    symmetrized mat10000 fixture exactly (diag 4, off −1, offsets ±1/±100;
+    reference mat10000.mtx:1-5).  Scales to the 1M-row (side=1000) and
+    10M-row (side≈3163) bench configs."""
+    return grid_laplacian(side, side)
+
+
+def banded_laplacian_dia(side: int, dtype=np.float32):
+    """Direct DIA construction of :func:`banded_laplacian` — no intermediate
+    COO/CSR, so 10M-row bench systems build in O(n) memory.
+
+    Returns a :class:`~cuda_mat.formats.dia.DIAMatrix` identical to
+    ``banded_laplacian(side).to_dia()``.
+    """
+    from cuda_mat.formats.dia import DIAMatrix
+
+    n = side * side
+    offsets = np.array([-side, -1, 0, 1, side], dtype=np.int32)
+    data = np.zeros((5, n), dtype=dtype)
+    data[2] = 4.0
+    # row-aligned: data[d, i] = A[i, i + off]
+    data[1, 1:] = -1.0          # off -1: rows 1..n-1 ...
+    data[1, ::side] = 0.0       # ... except first row of each grid row
+    data[3, : n - 1] = -1.0     # off +1
+    data[3, side - 1::side] = 0.0
+    data[0, side:] = -1.0       # off -side
+    data[4, : n - side] = -1.0  # off +side
+    nnz = int(np.count_nonzero(data))
+    return DIAMatrix(n, n, offsets, data, nnz)
+
+
+def laplacian_2d(side: int) -> CSRMatrix:
+    """9-point 2-D Laplacian on a ``side × side`` grid (diag 8, all 8
+    neighbors −1).  ``laplacian_2d(30)`` reproduces the symmetrized mat900
+    fixture (GR_30_30; reference mat900.mtx:1-7, 7744 nnz after
+    symmetrization)."""
+    n = side * side
+    i = np.arange(n, dtype=np.int64)
+    r, c = np.divmod(i, side)
+    rows, cols, data = [i], [i], [np.full(n, 8.0)]
+    for dr in (-1, 0, 1):
+        for dc in (-1, 0, 1):
+            if dr == 0 and dc == 0:
+                continue
+            rr, cc = r + dr, c + dc
+            ok = (rr >= 0) & (rr < side) & (cc >= 0) & (cc < side)
+            rows.append(i[ok])
+            cols.append((rr * side + cc)[ok])
+            data.append(np.full(int(ok.sum()), -1.0))
+    return CSRMatrix.from_coo(COOMatrix(
+        n, n, np.concatenate(rows), np.concatenate(cols), np.concatenate(data)))

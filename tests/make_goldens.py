@@ -19,13 +19,13 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 import numpy as np
 
-from cuda_mat_tpu.io.mmio import load_mm_sparse_matrix
-from cuda_mat_tpu.models.problems import split_form
-from cuda_mat_tpu.io.vectors import to_dense_vector
-from cuda_mat_tpu.reference.cpu_solvers import (bicg_cpu, bicgstab_hform_cpu,
+from cuda_mat.io.mmio import load_mm_sparse_matrix
+from cuda_mat.models.problems import split_form
+from cuda_mat.io.vectors import to_dense_vector
+from cuda_mat.reference.cpu_solvers import (bicg_cpu, bicgstab_hform_cpu,
                                                 bicgstab_ilu_cpu,
                                                 bicgstab_split_cpu)
-from cuda_mat_tpu.precond.preconditioners import milu0_factorize
+from cuda_mat.precond.preconditioners import milu0_factorize
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(HERE, "..", "data")
@@ -61,7 +61,7 @@ def main():
         "mat900_hform": bicgstab_hform_cpu(mat900, np.ones(900)),
         "mat10000_ilu": bicgstab_ilu_cpu(mat10000, np.ones(10000)),
         "mat900_bicg": bicg_cpu(mat900, np.ones(900)),
-        # remaining entry points on the headline fixture (VERDICT r1 #7)
+        # remaining entry points on the headline fixture
         "mat10000_hform": bicgstab_hform_cpu(mat10000, np.ones(10000)),
         "mat10000_split": bicgstab_split_cpu(
             *split_form(mat10000), np.ones(10000), np.ones(10000),
@@ -69,8 +69,7 @@ def main():
         "mat10000_bicg": bicg_cpu(mat10000, np.ones(10000)),
         # relaxed-MILU(0.97) trajectory (the round-4 flagship preconditioner
         # option, beyond-reference; factor values are native<->numpy tested
-        # in test_neumann.py — this pins the resulting trajectory too,
-        # VERDICT r4 #5)
+        # in test_neumann.py — this pins the resulting trajectory too)
         "mat900_milu097": bicgstab_ilu_cpu(
             mat900, np.ones(900), mvals=milu0_factorize(mat900, 0.97)),
     }

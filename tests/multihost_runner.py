@@ -1,11 +1,11 @@
 """Per-process body of the 2-process multi-host smoke test (SURVEY §2
-distributed component 4; VERDICT r1 #4 / weak #multi-host).
+distributed component 4).
 
 Launched by tests/test_multihost.py as ``python multihost_runner.py
 <process_id> <num_processes> <coordinator_port>``.  Each process owns 2
 virtual CPU devices; together they form a 4-device global mesh over the
-``jax.distributed`` process group — the same code path a real TPU pod slice
-uses over DCN (reference analogue: the one-time device init of
+``jax.distributed`` process group — the same code path several GPU hosts
+use (reference analogue: the one-time device init of
 example.cpp:237, lifted to a process group).
 """
 
@@ -27,10 +27,10 @@ def main() -> int:
 
     import numpy as np
 
-    from cuda_mat_tpu.config import SolverConfig
-    from cuda_mat_tpu.models.problems import banded_laplacian
-    from cuda_mat_tpu.parallel.dist_solver import (dist_bicgstab, dist_spmv)
-    from cuda_mat_tpu.parallel.mesh import init_distributed, make_mesh
+    from cuda_mat.config import SolverConfig
+    from cuda_mat.models.problems import banded_laplacian
+    from cuda_mat.parallel.dist_solver import (dist_bicgstab, dist_spmv)
+    from cuda_mat.parallel.mesh import init_distributed, make_mesh
 
     init_distributed(coordinator_address=f"localhost:{port}",
                      num_processes=nproc, process_id=pid)
@@ -52,18 +52,17 @@ def main() -> int:
     rel = np.linalg.norm(b - a.matvec(res.x)) / np.linalg.norm(b)
     assert rel < 1e-6, rel
 
-    # the TPU production config — ilu0_neumann + the Pallas local engine
-    # (interpret mode on CPU) — through the real multi-process group
-    # (VERDICT r2 weak #6: it was multi-device tested but not multi-process)
+    # ilu0_neumann on the XLA banded engine through the real multi-process
+    # group
     cfg_n = SolverConfig(maxit=2000, tol=1e-8, precond="ilu0_neumann",
                          neumann_terms=3)
-    res_n = dist_bicgstab(a, b, mesh, cfg_n, local_engine="pallas")
+    res_n = dist_bicgstab(a, b, mesh, cfg_n, local_engine="xla")
     assert res_n.converged, res_n.status
     rel_n = np.linalg.norm(b - a.matvec(res_n.x)) / np.linalg.norm(b)
     assert rel_n < 1e-6, rel_n
 
     # the flagship distributed stencil engine across processes
-    from cuda_mat_tpu.models.problems import grid_laplacian
+    from cuda_mat.models.problems import grid_laplacian
 
     g = grid_laplacian(8, 126)
     bg = rng.uniform(1.0, 5.0, g.n)

@@ -1,15 +1,11 @@
-"""bench.py helper functions (they produce the driver artifact — the
-medians, the maxit-differencing calibration, and the concurrency lock
-must keep working on the CPU backend too)."""
-
-import os
+"""bench.py helper functions (they produce the benchmark's numbers — the
+medians must keep working on the CPU backend too)."""
 
 import numpy as np
 
-import bench as bench_mod
-from bench import _acquire_lock, _calibrated_per_iter, _median_solve
-from cuda_mat_tpu.config import SolverConfig
-from cuda_mat_tpu.solvers.bicgstab import make_solver
+from bench import _median_solve
+from cuda_mat.config import SolverConfig
+from cuda_mat.solvers.bicgstab import make_solver
 
 
 def test_median_solve_returns_median(mat900):
@@ -20,24 +16,15 @@ def test_median_solve_returns_median(mat900):
     assert res.dt_alg > 0
 
 
-def test_calibrated_per_iter_positive(mat900):
-    cfg = SolverConfig(maxit=2000, tol=1e-6, precond="ilu0")
-    per_iter, fixed, its = _calibrated_per_iter(
-        make_solver, mat900, np.ones(mat900.n), cfg, 5, 50)
-    # tol=0 forces the caps exactly (f64 does not NaN in 50 iters here)
-    assert its == (5, 50)
-    assert per_iter is not None and per_iter > 0
+def test_bench_refuses_to_run_without_gpu():
+    import os
+    import subprocess
+    import sys
 
-
-def test_acquire_lock_stale_and_contended(tmp_path, monkeypatch):
-    lock = tmp_path / "bench.lock"
-    monkeypatch.setattr(bench_mod, "_LOCK", str(lock))
-    # stale lock (dead pid) is reclaimed
-    lock.write_text("999999999")
-    assert _acquire_lock() is True
-    assert int(lock.read_text()) == os.getpid()
-    # own pid counts as clean (re-entry)
-    assert _acquire_lock() is True
-    # a live foreign pid reports contention (pid 1 is always alive)
-    lock.write_text("1")
-    assert _acquire_lock() is False
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    p = subprocess.run([sys.executable, os.path.join(repo, "bench.py")],
+                       capture_output=True, text=True, env=env, cwd=repo,
+                       timeout=240)
+    assert p.returncode != 0
+    assert "needs a GPU" in p.stderr and not p.stdout.strip()

@@ -1,4 +1,4 @@
-"""check_halves=False (first-half convergence-check elision, VERDICT r4 #6).
+"""check_halves=False (first-half convergence-check elision).
 
 The reference tests convergence after each half-iteration (reference
 pbicgstab.cu:116,147).  ``check_halves=False`` tests only after full
@@ -12,8 +12,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cuda_mat_tpu.config import SolverConfig
-from cuda_mat_tpu.solvers.bicgstab import make_solver, solve
+from cuda_mat.config import SolverConfig
+from cuda_mat.solvers.bicgstab import make_solver, solve
 
 CFG = SolverConfig(maxit=2000, tol=1e-6, precond="ilu0")
 
@@ -58,21 +58,21 @@ def test_check_halves_off_first_half_exit(mat10000):
 
 
 def test_check_halves_off_smaller_graph(mat900):
-    """Graph-level engagement proof (the r4 phantom-A/B lesson): the two
-    configs must LOWER to different programs, the elided one with fewer
+    """Graph-level engagement proof: the two configs must LOWER to
+    different programs, the elided one with fewer
     select/compare nodes — a silently-ungated flag would lower identically
     and any measured 'win' would be noise."""
-    from cuda_mat_tpu.solvers.bicgstab import _precond_solve
+    from cuda_mat.solvers.bicgstab import _precond_solve
 
     ps = make_solver(mat900, CFG)
-    b = jnp.asarray(np.ones(mat900.n))
-    x0 = jnp.ones_like(b)
+    b = ps._prep_vec(np.ones(mat900.n))
+    x0 = ps._prep_vec(np.ones(mat900.n))
     tol = jnp.asarray(1e-6, b.dtype)
     texts = {}
     for ch in (True, False):
         texts[ch] = _precond_solve.lower(
-            ps.op, ps.pre, x0, b, tol, 2000, False, fused_dots=False,
-            fuse_blas1=False, check_halves=ch).as_text()
+            ps.op, ps.pre, x0, b, tol, 2000, False,
+            check_halves=ch).as_text()
     assert texts[True] != texts[False]
     assert (texts[False].count("stablehlo.select")
             < texts[True].count("stablehlo.select"))
@@ -80,8 +80,8 @@ def test_check_halves_off_smaller_graph(mat900):
 
 def test_check_halves_off_distributed(mat900):
     """The flag threads through the shard_map loop (same core, same carry)."""
-    from cuda_mat_tpu.parallel.mesh import make_mesh
-    from cuda_mat_tpu.parallel.dist_solver import dist_bicgstab
+    from cuda_mat.parallel.mesh import make_mesh
+    from cuda_mat.parallel.dist_solver import dist_bicgstab
 
     b = np.ones(mat900.n)
     cfg = SolverConfig(maxit=2000, tol=1e-8, precond="ilu0_neumann",

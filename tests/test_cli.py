@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from cuda_mat_tpu.cli import main
-from cuda_mat_tpu.models.problems import fixture_path
+from cuda_mat.cli import main
+from cuda_mat.models.problems import fixture_path
 
 
 def test_cli_mat900_ilu(capsys):

@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from cuda_mat_tpu.cli import main
-from cuda_mat_tpu.io import omp_format
-from cuda_mat_tpu.models.problems import fixture_path, banded_laplacian
+from cuda_mat.cli import main
+from cuda_mat.io import omp_format
+from cuda_mat.models.problems import fixture_path, banded_laplacian
 
 
 def test_cli_omp_format(tmp_path, capsys, rng):
@@ -34,7 +34,7 @@ def test_cli_checkpoint_resume(tmp_path, capsys):
 
 def test_cli_reorder_rcm(tmp_path, capsys):
     """--reorder rcm end-to-end through the CLI."""
-    from cuda_mat_tpu.cli import main
+    from cuda_mat.cli import main
 
     rc = main(["-M", "data/mat900.mtx", "--reorder", "rcm",
                "--platform", "cpu", "--x64"])
@@ -44,7 +44,7 @@ def test_cli_reorder_rcm(tmp_path, capsys):
 
 def test_cli_format_bell(capsys):
     """--format bell forces the blocked-ELL operator."""
-    from cuda_mat_tpu.cli import main
+    from cuda_mat.cli import main
 
     rc = main(["-M", "data/mat900.mtx", "--format", "bell",
                "--precond", "none", "--platform", "cpu", "--x64"])
@@ -53,7 +53,7 @@ def test_cli_format_bell(capsys):
 
 
 def test_cli_neumann_exact_factors(capsys):
-    from cuda_mat_tpu.cli import main
+    from cuda_mat.cli import main
 
     rc = main(["-M", "data/mat900.mtx", "--precond", "ilu0_neumann",
                "--format", "stencil", "--neumann-exact-factors",
@@ -62,22 +62,10 @@ def test_cli_neumann_exact_factors(capsys):
     assert "iterations" in capsys.readouterr().out
 
 
-def test_cli_fuse_blas1(capsys):
-    """--fuse-blas1 enables the BLAS1-prologue msolve fold and still
-    converges on the stencil ilu0_neumann path."""
-    from cuda_mat_tpu.cli import main
-
-    rc = main(["-M", "data/mat900.mtx", "--precond", "ilu0_neumann",
-               "--format", "stencil", "--fuse-blas1",
-               "--platform", "cpu", "--x64"])
-    assert rc == 0
-    assert "iterations" in capsys.readouterr().out
-
-
 def test_cli_hints_refine_when_true_residual_misses(capsys, monkeypatch):
     """When the recursive residual converges but the f64 true residual
     misses tol by >10x (f32 drift), the CLI points at --refine."""
-    from cuda_mat_tpu.cli import main
+    from cuda_mat.cli import main
 
     rc = main(["-M", "data/mat10000.mtx", "--dtype", "float32",
                "--tol", "1e-6", "--platform", "cpu"])

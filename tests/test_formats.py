@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from cuda_mat_tpu.formats.csr import CSRMatrix
-from cuda_mat_tpu.models.problems import (banded_laplacian, gen_rand_csr_matrix,
+from cuda_mat.formats.csr import CSRMatrix
+from cuda_mat.models.problems import (banded_laplacian, gen_rand_csr_matrix,
                                           laplacian_2d,
                                           random_diag_nonzero_system)
 
@@ -94,7 +94,7 @@ def test_banded_laplacian_matches_mat10000(mat10000):
 
 
 def test_duplicate_entries_rejected_without_sum():
-    from cuda_mat_tpu.formats.coo import COOMatrix
+    from cuda_mat.formats.coo import COOMatrix
 
     coo = COOMatrix(2, 2, [0, 0], [1, 1], [1.0, 2.0])
     with pytest.raises(ValueError):

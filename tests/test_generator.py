@@ -6,9 +6,9 @@ import sys
 import numpy as np
 import pytest
 
-from cuda_mat_tpu.generator import main
-from cuda_mat_tpu.io import omp_format
-from cuda_mat_tpu.io.mmio import load_mm_sparse_matrix
+from cuda_mat.generator import main
+from cuda_mat.io import omp_format
+from cuda_mat.io.mmio import load_mm_sparse_matrix
 
 
 def test_stdin_config_vector(monkeypatch, capsys):
@@ -39,8 +39,8 @@ def test_vector_mm(tmp_path):
     p = str(tmp_path / "v.mtx")
     assert main(["--kind", "vector", "--dim", "12", "--zero-prob", "0.0",
                  "--mm", "-o", p]) == 0
-    from cuda_mat_tpu.io.mmio import read_mm
-    from cuda_mat_tpu.io.vectors import to_dense_vector
+    from cuda_mat.io.mmio import read_mm
+    from cuda_mat.io.vectors import to_dense_vector
 
     _, coo = read_mm(p)
     assert to_dense_vector(coo.to_csr()).shape == (12,)

@@ -7,13 +7,13 @@ import io
 import numpy as np
 import pytest
 
-from cuda_mat_tpu.formats.coo import COOMatrix
-from cuda_mat_tpu.formats.csr import CSRMatrix, verify_pattern
-from cuda_mat_tpu.io.mmio import (load_mm_sparse_matrix, read_mm, write_mm,
+from cuda_mat.formats.coo import COOMatrix
+from cuda_mat.formats.csr import CSRMatrix, verify_pattern
+from cuda_mat.io.mmio import (load_mm_sparse_matrix, read_mm, write_mm,
                                   write_mm_dense_vector)
-from cuda_mat_tpu.io.vectors import to_dense_vector
-from cuda_mat_tpu.io import omp_format
-from cuda_mat_tpu.models.problems import fixture_path
+from cuda_mat.io.vectors import to_dense_vector
+from cuda_mat.io import omp_format
+from cuda_mat.models.problems import fixture_path
 
 
 # Hand-computed CSR for mat3.mtx (reference mat3.mtx:7-15):

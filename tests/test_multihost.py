@@ -2,8 +2,7 @@
 
 Exercises the real multi-host runtime path — ``init_distributed`` +
 ``make_mesh`` over a cross-process device set + ``put_global``/
-``fetch_global`` + the ppermute/psum solver — without a cluster
-(VERDICT r1 #4).  The subprocesses force the CPU platform with 2 virtual
+``fetch_global`` + the ppermute/psum solver — without a cluster.  The subprocesses force the CPU platform with 2 virtual
 devices each, so this runs anywhere the normal suite runs.
 """
 

@@ -1,16 +1,16 @@
-"""Truncated Neumann-series ILU(0) application (the bandwidth-optimal TPU
+"""Truncated Neumann-series ILU(0) application (the bandwidth-bound
 alternative to triangular sweeps — SURVEY §7 'Jacobi-iteration approximation')."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cuda_mat_tpu.config import SolverConfig
-from cuda_mat_tpu.precond.preconditioners import (ILU0Preconditioner,
+from cuda_mat.config import SolverConfig
+from cuda_mat.precond.preconditioners import (ILU0Preconditioner,
                                                   NeumannILUPreconditioner)
-from cuda_mat_tpu.reference.cpu_solvers import (ilu0_factorize,
+from cuda_mat.reference.cpu_solvers import (ilu0_factorize,
                                                 solve_lower_unit, solve_upper)
-from cuda_mat_tpu.solvers.bicgstab import solve
+from cuda_mat.solvers.bicgstab import solve
 
 
 def test_series_converges_to_exact_trisolve(mat900, rng):
@@ -59,7 +59,7 @@ def test_neumann_solve_converges(mat900, rng, terms, max_extra):
 
 
 def test_neumann_cli(capsys):
-    from cuda_mat_tpu.cli import main
+    from cuda_mat.cli import main
 
     rc = main(["-M", "data/mat900.mtx", "--precond", "ilu0_neumann",
                "--neumann-terms", "4", "--platform", "cpu", "--x64"])
@@ -67,51 +67,52 @@ def test_neumann_cli(capsys):
     assert "iterations" in capsys.readouterr().out
 
 
-def test_neumann_padded_layout_matches_unpadded(mat900, rng):
-    """pad_like: N_l/N_u built in the Pallas padded layout produce the same
-    msolve as the plain-operator form (pads stay zero through every term)."""
-    import jax.numpy as jnp
-    from cuda_mat_tpu.ops.pallas_spmv import PallasDIAOperator
+def test_neumann_padded_layout_matches_unpadded(rng):
+    """pad_like: exact-pattern N_l/N_u restrided into the stencil's strided
+    layout produce the same msolve as the plain-operator form (gaps stay
+    zero through every term)."""
+    from cuda_mat.models.problems import laplacian_2d
+    from cuda_mat.ops.stencil import ConstStencilOperator
 
-    pad_op = PallasDIAOperator.from_dia(mat900.to_dia(), dtype=jnp.float64,
-                                        block=1024, interpret=True)
-    pre_pad = NeumannILUPreconditioner.from_csr(mat900, dtype=jnp.float64,
-                                                terms=4, pad_like=pad_op)
-    pre = NeumannILUPreconditioner.from_csr(mat900, dtype=jnp.float64,
-                                            terms=4)
-    f = rng.standard_normal(900)
+    a = laplacian_2d(30)                       # the mat900 pattern
+    pad_op = ConstStencilOperator.from_dia(a.to_dia(), dtype=jnp.float64,
+                                           gap=3)
+    pre_pad = NeumannILUPreconditioner.from_csr(a, dtype=jnp.float64,
+                                                terms=4, pad_like=pad_op,
+                                                const_factors=False)
+    pre = NeumannILUPreconditioner.from_csr(a, dtype=jnp.float64, terms=4)
+    f = rng.standard_normal(a.n)
     got = np.asarray(pad_op.unpad_vec(pre_pad.msolve(pad_op.pad_vec(f))))
     want = np.asarray(pre.msolve(jnp.asarray(f)))
     np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-12)
-    # pads remain exactly zero
+    # gap cells remain exactly zero
     out = np.asarray(pre_pad.msolve(pad_op.pad_vec(f)))
-    assert np.all(out[:pad_op.block] == 0) and np.all(out[pad_op.block + 900:] == 0)
+    assert not out.reshape(30, pad_op.stride)[:, 30:].any()
 
 
 # ---------------------------------------------------------------------------
 # Constant-factor + fused-series Neumann on the gap-strided stencil layout
-# (VERDICT r2 next-round #6: kill the restride tax)
 # ---------------------------------------------------------------------------
 
 
 def _stencil_op(a, dtype=jnp.float64):
-    from cuda_mat_tpu.solvers.bicgstab import _as_op
+    from cuda_mat.solvers.bicgstab import _as_op
 
     return _as_op(a, dtype, format="stencil")
 
 
 def test_poly_terms_match_dense_polynomial(rng):
-    """neumann_poly_terms(N, k) applied through the gap-strided kernel equals
-    the dense polynomial I - N + N^2 (boundary/gap handling included)."""
-    from cuda_mat_tpu.models.problems import grid_laplacian
-    from cuda_mat_tpu.ops.pallas_stencil import (neumann_poly_terms,
-                                                 strided_offsets)
-    from cuda_mat_tpu.precond.preconditioners import (_const_factor_operator,
+    """neumann_poly_terms(N, k) applied through the gap-strided stencil
+    equals the dense polynomial I - N + N^2 (boundary/gap handling
+    included)."""
+    from cuda_mat.models.problems import grid_laplacian
+    from cuda_mat.ops.stencil import neumann_poly_terms, strided_offsets
+    from cuda_mat.precond.preconditioners import (_const_factor_operator,
                                                       neumann_factors)
     import dataclasses
 
     a = grid_laplacian(24, 126)
-    op = _stencil_op(a)
+    op = _stencil_op(a).with_gap(2)
     low, up, diag = neumann_factors(a)
     for f_csr in (low, up):
         n_op = _const_factor_operator(f_csr, op)
@@ -138,19 +139,19 @@ def test_poly_terms_match_dense_polynomial(rng):
 def test_fused_msolve_matches_sequential_const(rng):
     """Per-triangle fused series ("series" level) == sequential const series
     (same polynomial, expanded)."""
-    from cuda_mat_tpu.models.problems import grid_laplacian
-    from cuda_mat_tpu.precond.preconditioners import (
+    from cuda_mat.models.problems import grid_laplacian
+    from cuda_mat.precond.preconditioners import (
         _const_factor_operator, _fused_series_operator, neumann_factors)
 
     a = grid_laplacian(24, 126)
-    op = _stencil_op(a)
+    op = _stencil_op(a).with_gap(2)
     low, up, diag = neumann_factors(a)
     nl = _const_factor_operator(low, op)
     nu = _const_factor_operator(up, op)
     pre_f = NeumannILUPreconditioner(_fused_series_operator(nl, 3),
                                      _fused_series_operator(nu, 3),
                                      op.pad_vec(1.0 / diag), 3,
-                                     fused="series")
+                                     fused=True)
     pre_s = NeumannILUPreconditioner(nl, nu, op.pad_vec(1.0 / diag), 3)
     f = op.pad_vec(rng.standard_normal(a.n))
     np.testing.assert_allclose(np.asarray(pre_f.msolve(f)),
@@ -158,198 +159,14 @@ def test_fused_msolve_matches_sequential_const(rng):
                                rtol=1e-13, atol=1e-13)
 
 
-def test_mono_msolve_matches_dense_polynomial(rng):
-    """from_csr(const_factors=True) collapses the whole M⁻¹ into one stencil
-    ("mono").  The kernel masks each composed term by its TOTAL grid offset
-    (a +1/−1 round trip at a boundary column survives, where the sequential
-    two-stencil product would drop it) — yet another boundary-layer-only
-    perturbation of the preconditioner, measured at +0 iterations.  Interior
-    rows match dense (Σ(−N_u)^j)·d*·(Σ(−N_l)^j) exactly; all rows match the
-    dense application of the mono terms with total-offset masking."""
-    from cuda_mat_tpu.models.problems import grid_laplacian
-    from cuda_mat_tpu.precond.preconditioners import (_const_factor_operator,
-                                                      neumann_factors)
-
-    a = grid_laplacian(24, 126)
-    op = _stencil_op(a)
-    pre = NeumannILUPreconditioner.from_csr(a, dtype=jnp.float64, terms=3,
-                                            pad_like=op, const_factors=True,
-                                            prefer_mono=True)
-    assert pre.fused == "mono"
-    low, up, diag = neumann_factors(a)
-    n, c = a.n, op.c_grid
-
-    def dense_of(terms):
-        d = np.zeros((n, n))
-        for (off, dc, scal) in terms:
-            for i in range(n):
-                j = i + off
-                if 0 <= j < n and 0 <= (i % c) + dc < c:
-                    d[i, j] = scal
-        return d
-
-    f = rng.standard_normal(a.n)
-    y = np.asarray(op.unpad_vec(pre.msolve(op.pad_vec(f))))
-    # exact oracle: total-offset-masked dense application of the mono terms
-    np.testing.assert_allclose(y, dense_of(pre.nl.terms) @ f,
-                               rtol=1e-12, atol=1e-12)
-    # interior rows also equal the sequential polynomial product
-    dl = dense_of(_const_factor_operator(low, op).terms)
-    du = dense_of(_const_factor_operator(up, op).terms)
-    d_star = diag[(n // c // 2) * c + c // 2]
-    dense_m = (np.eye(n) - du + du @ du) @ ((np.eye(n) - dl + dl @ dl)
-                                            / d_star)
-    seq = dense_m @ f
-    interior = np.array([i for i in range(n)
-                         if 2 <= i // c < n // c - 2 and 2 <= i % c < c - 2])
-    np.testing.assert_allclose(y[interior], seq[interior],
-                               rtol=1e-12, atol=1e-12)
-
-
-def test_kernel_msolve_bitwise_matches_series(rng):
-    """The one-launch fused msolve kernel (fused == "kernel") is bitwise-equal
-    to the two-launch series P_u.matvec(inv_d * P_l.matvec(x)): same term
-    order, same mask-multiply order (IEEE multiply commutes), the in-VMEM
-    intermediate u zeroed outside the global true rows exactly where the
-    sequential P_l launch writes zeros."""
-    import dataclasses
-
-    from cuda_mat_tpu.models.problems import grid_laplacian
-    from cuda_mat_tpu.ops.pallas_stencil import (ConstStencilOperator,
-                                                 plan_const_neumann_layout)
-
-    for (r, c, k) in [(24, 126, 3), (17, 30, 3), (40, 12, 4), (8, 100, 5)]:
-        a = grid_laplacian(r, c)
-        op0 = _stencil_op(a)
-        plan = plan_const_neumann_layout(op0.terms, k, op0.c_grid, op0.stride)
-        op = ConstStencilOperator.from_dia(
-            a.to_dia(max_diags=16), dtype=jnp.float64, interpret=True,
-            min_sub=plan[0], block_target=plan[1])
-        pre = NeumannILUPreconditioner.from_csr(a, dtype=jnp.float64,
-                                                terms=k, pad_like=op)
-        assert pre.fused == "kernel", (r, c, k, pre.fused)
-        seq = dataclasses.replace(pre, fused="series", gap_ext=None)
-        f = op.pad_vec(rng.standard_normal(a.n))
-        yk = np.asarray(pre.msolve(f))
-        ys = np.asarray(seq.msolve(f))
-        assert np.array_equal(yk, ys), (r, c, k, np.abs(yk - ys).max())
-        # padded vectors stay a fixed point: pads/gaps of the output are 0
-        assert np.array_equal(
-            yk, np.asarray(op.pad_vec(op.unpad_vec(jnp.asarray(yk)))))
-
-
-def test_fma_msolve_matches_prologue_plus_kernel(rng):
-    """msolve_fma (BLAS1 prologue folded into the fused kernel, VERDICT r3
-    #5) returns (p, msolve(p)) for p = a + c1·(b + c2·c) up to one FMA
-    contraction ulp (the jitted kernel may contract the combination's
-    mul+add; same documented band as the halo boundary recompute)."""
-    import dataclasses
-
-    from cuda_mat_tpu.models.problems import grid_laplacian
-    from cuda_mat_tpu.ops.pallas_stencil import (ConstStencilOperator,
-                                                 plan_const_neumann_layout)
-
-    for (r, c, k) in [(24, 126, 3), (40, 12, 4)]:
-        a = grid_laplacian(r, c)
-        op0 = _stencil_op(a)
-        plan = plan_const_neumann_layout(op0.terms, k, op0.c_grid, op0.stride)
-        op = ConstStencilOperator.from_dia(
-            a.to_dia(max_diags=16), dtype=jnp.float64, interpret=True,
-            min_sub=plan[0], block_target=plan[1])
-        pre = NeumannILUPreconditioner.from_csr(a, dtype=jnp.float64,
-                                                terms=k, pad_like=op)
-        assert pre.fused == "kernel" and pre.fma_fits, (r, c, k)
-        av = op.pad_vec(rng.standard_normal(a.n))
-        bv = op.pad_vec(rng.standard_normal(a.n))
-        cv = op.pad_vec(rng.standard_normal(a.n))
-        for (c1, c2) in [(0.73, -1.21), (-0.4, 0.0), (0.0, 5.0)]:
-            c1 = jnp.asarray(c1, jnp.float64)
-            c2 = jnp.asarray(c2, jnp.float64)
-            p, y = pre.msolve_fma(av, c1, bv, c2, cv)
-            p_ref = av + c1 * (bv + c2 * cv)
-            y_ref = pre.msolve(p_ref)
-            np.testing.assert_allclose(np.asarray(p), np.asarray(p_ref),
-                                       rtol=5e-15, atol=5e-15)
-            np.testing.assert_allclose(np.asarray(y), np.asarray(y_ref),
-                                       rtol=1e-12, atol=1e-12)
-            # the zero pads/gaps stay an exact fixed point of both outputs
-            mask = np.asarray(op.pad_vec(np.ones(a.n))) == 0
-            assert not np.asarray(p)[mask].any()
-            assert not np.asarray(y)[mask].any()
-        # two-stream form (c=None — the r1-production axpy, no dead operand)
-        p3, y3 = pre.msolve_fma(av, c1, bv)
-        p3_ref = av + c1 * bv
-        np.testing.assert_allclose(np.asarray(p3), np.asarray(p3_ref),
-                                   rtol=5e-15, atol=5e-15)
-        np.testing.assert_allclose(np.asarray(y3),
-                                   np.asarray(pre.msolve(p3_ref)),
-                                   rtol=1e-12, atol=1e-12)
-        # the XLA fallback (fma_fits=False) computes the identical math
-        fb = dataclasses.replace(pre, fma_fits=False)
-        p2, y2 = fb.msolve_fma(av, c1, bv, c2, cv)
-        np.testing.assert_allclose(np.asarray(p2), np.asarray(p),
-                                   rtol=5e-15, atol=5e-15)
-        np.testing.assert_allclose(np.asarray(y2), np.asarray(y),
-                                   rtol=1e-12, atol=1e-12)
-
-
-def test_planner_sizes_block_for_fma_engagement():
-    """Regression (r4 review): the layout planner must size the block for
-    the BLAS1-prologue kernel's working set (FMA3_MSOLVE_EXTRA_BUFS), else
-    fma_fits is False on every planner-constrained real-TPU layout and
-    config.fuse_blas1 silently compiles the separate-axpy graph.  Layout
-    planning and from_csr are host-only, so interpret=False is exercised
-    off-TPU."""
-    from cuda_mat_tpu.models.problems import grid_laplacian
-    from cuda_mat_tpu.ops.pallas_stencil import (ConstStencilOperator,
-                                                 plan_const_neumann_layout)
-
-    a = grid_laplacian(1000, 100)    # 100k rows: npad 128000 > the VMEM cap
-    dia = a.to_dia(max_diags=16)
-    for k in (3, 4):
-        op = ConstStencilOperator.from_dia(dia, dtype=jnp.float32,
-                                           interpret=False)
-        plan = plan_const_neumann_layout(op.terms, k, op.c_grid, op.stride,
-                                         fuse_blas1=True)
-        assert plan is not None
-        # the flagship configs ARE planner-constrained — that's the trap
-        assert op.block > plan[1], (k, op.block, plan)
-        op = ConstStencilOperator.from_dia(dia, dtype=jnp.float32,
-                                           interpret=False, min_sub=plan[0],
-                                           block_target=plan[1])
-        pre = NeumannILUPreconditioner.from_csr(a, dtype=jnp.float32,
-                                                terms=k, pad_like=op)
-        assert pre.fused == "kernel", (k, pre.fused)
-        assert pre.fma_fits, (k, op.block)
-
-
-def test_fuse_blas1_solve_matches_separate_axpys(rng):
-    """solve() with config.fuse_blas1 converges like the separate-axpy body
-    (f64: the folded combination differs from the XLA axpys by at most one
-    FMA contraction ulp, so iteration counts stay put and both solutions
-    meet the tolerance)."""
-    from cuda_mat_tpu.models.problems import grid_laplacian
-
-    a = grid_laplacian(40, 126)
-    b = a.matvec(rng.standard_normal(a.n))
-    cfg = SolverConfig(maxit=2000, tol=1e-6, dtype="float64",
-                       precond="ilu0_neumann", neumann_terms=3)
-    r_on = solve(a, b, cfg.replace(fuse_blas1=True), format="stencil")
-    r_off = solve(a, b, cfg.replace(fuse_blas1=False), format="stencil")
-    assert r_on.converged and r_off.converged
-    assert abs(r_on.iters - r_off.iters) <= 2
-    nb = np.linalg.norm(b)
-    assert np.linalg.norm(b - a.matvec(r_on.x)) / nb < 1e-5
-    np.testing.assert_allclose(r_on.x, r_off.x, rtol=1e-7, atol=1e-7)
-
-
 def test_kernel_msolve_engages_through_solve(rng):
-    """solve() on the stencil path plans the layout for the fused msolve
-    kernel and from_csr selects it (the production single-chip msolve)."""
+    """solve() on the stencil path widens the layout's gap for the series
+    and from_csr selects the fused whole-series msolve (the production
+    single-chip msolve)."""
     from unittest import mock
 
-    from cuda_mat_tpu.models.problems import grid_laplacian
-    from cuda_mat_tpu.precond.preconditioners import NeumannILUPreconditioner
+    from cuda_mat.models.problems import grid_laplacian
+    from cuda_mat.precond.preconditioners import NeumannILUPreconditioner
 
     a = grid_laplacian(40, 126)
     b = a.matvec(rng.standard_normal(a.n))
@@ -367,13 +184,13 @@ def test_kernel_msolve_engages_through_solve(rng):
                            classmethod(spy)):
         r = solve(a, b, cfg, format="stencil")
     assert r.converged
-    assert made == ["kernel"]
+    assert made == [True]
 
 
 def test_const_factor_solve_converges_like_exact_pattern(rng):
     """Const-factor (boundary-layer-perturbed) Neumann costs ~zero extra
     iterations at the production tolerance."""
-    from cuda_mat_tpu.models.problems import grid_laplacian
+    from cuda_mat.models.problems import grid_laplacian
 
     a = grid_laplacian(40, 126)
     b = a.matvec(rng.standard_normal(a.n))
@@ -388,26 +205,30 @@ def test_const_factor_solve_converges_like_exact_pattern(rng):
 
 
 def test_min_sub_rebuild_for_wide_grids(rng):
-    """When the fused series' offsets exceed the default halo sub-block
-    (large C), solve() rebuilds the operator with a widened sub so the
-    fused path still engages."""
-    from cuda_mat_tpu.models.problems import grid_laplacian
+    """When the fused series' within-row reach exceeds the operator's
+    default gap, make_solver rebuilds the layout with a wider gap so the
+    fused path still engages (also on a wide grid)."""
+    from cuda_mat.models.problems import grid_laplacian
+    from cuda_mat.solvers.bicgstab import make_solver
 
-    a = grid_laplacian(8, 1000)   # stride 1024; series needs ~2*1025 > 2048
+    a = grid_laplacian(8, 1000)
     b = a.matvec(rng.standard_normal(a.n))
     cfg = SolverConfig(maxit=2000, tol=1e-6, dtype="float64",
-                       precond="ilu0_neumann", neumann_terms=3)
-    r = solve(a, b, cfg, format="stencil")
+                       precond="ilu0_neumann", neumann_terms=4)
+    assert _stencil_op(a).stride == 1001
+    ps = make_solver(a, cfg, format="stencil")
+    assert ps.op.stride == 1003 and ps.pre.fused
+    r = ps.solve(b)
     assert r.converged
 
 
 def test_gap_overflow_falls_back_to_sequential(rng):
     """k large enough that series |dc| exceeds the gap width: from_csr falls
     back to the sequential const-factor series instead of mis-masking."""
-    from cuda_mat_tpu.models.problems import grid_laplacian
+    from cuda_mat.models.problems import grid_laplacian
 
-    a = grid_laplacian(24, 126)     # stride 128, gap = 2
-    op = _stencil_op(a)
+    a = grid_laplacian(24, 126)
+    op = _stencil_op(a).with_gap(2)
     pre = NeumannILUPreconditioner.from_csr(a, dtype=jnp.float64, terms=4,
                                             pad_like=op, const_factors=True)
     assert not pre.fused            # |dc| = 3 > gap 2
@@ -422,7 +243,7 @@ def test_milu_factor_row_sums_and_native_parity(mat900):
     and the numpy fallback agree to accumulation-order ulps (the dropped-fill
     sum is a reduction, so bit-identity is not guaranteed as it is for plain
     ILU(0)); omega=0 degenerates to ILU(0) exactly."""
-    from cuda_mat_tpu.precond.preconditioners import milu0_factorize
+    from cuda_mat.precond.preconditioners import milu0_factorize
 
     m = milu0_factorize(mat900, 1.0)
     n = mat900.n
@@ -438,7 +259,7 @@ def test_milu_factor_row_sums_and_native_parity(mat900):
     np.testing.assert_array_equal(milu0_factorize(mat900, 0.0),
                                   ilu0_factorize(mat900))
     try:
-        from cuda_mat_tpu.native import loader
+        from cuda_mat.native import loader
         native_ok = loader.available()
     except ImportError:
         native_ok = False
@@ -452,17 +273,16 @@ def test_milu_factor_row_sums_and_native_parity(mat900):
 def test_milu_omega_cuts_iterations(rng):
     """Relaxed MILU (omega=0.97) conditions the Laplacian far better than
     plain ILU(0): solve-level iteration count drops by a wide margin at
-    40k rows with the k=4 Neumann series (BASELINE.md r4 sweep: 96 -> 70
-    at b=ones, 101 -> 74 at b=randn; the win shrinks only when the exact
-    solution is white noise), on both the generic and stencil paths."""
-    from cuda_mat_tpu.models.problems import grid_laplacian
+    40k rows with the k=4 Neumann series, on both the generic and stencil
+    paths."""
+    from cuda_mat.models.problems import grid_laplacian
 
     a = grid_laplacian(400, 100)
     b = np.ones(a.n)
     cfg = SolverConfig(maxit=2000, tol=1e-6, dtype="float64",
                        precond="ilu0_neumann", neumann_terms=4)
-    r0 = solve(a, b, cfg)
-    r1 = solve(a, b, cfg.replace(milu_omega=0.97))
+    r0 = solve(a, b, cfg, format="dia")
+    r1 = solve(a, b, cfg.replace(milu_omega=0.97), format="dia")
     assert r0.converged and r1.converged
     assert r1.iters <= r0.iters - 15, (r0.iters, r1.iters)
     rel = np.linalg.norm(b - a.matvec(r1.x)) / np.linalg.norm(b)
@@ -477,7 +297,7 @@ def test_milu_omega_cuts_iterations(rng):
 def test_milu_omega_exact_ilu_path(rng):
     """milu_omega also flows through the exact-trisolve ilu0 path (the
     modified factor feeds the same blocked triangular solves)."""
-    from cuda_mat_tpu.models.problems import grid_laplacian
+    from cuda_mat.models.problems import grid_laplacian
 
     a = grid_laplacian(100, 100)
     b = np.ones(a.n)

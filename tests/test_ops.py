@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cuda_mat_tpu.formats.csr import CSRMatrix
-from cuda_mat_tpu.models.problems import banded_laplacian, gen_rand_csr_matrix
-from cuda_mat_tpu.ops.operators import (CSROperator, DIAOperator, DenseOperator,
+from cuda_mat.formats.csr import CSRMatrix
+from cuda_mat.models.problems import banded_laplacian, gen_rand_csr_matrix
+from cuda_mat.ops.operators import (CSROperator, DIAOperator, DenseOperator,
                                         ELLOperator, SplitOperator,
                                         make_operator)
 
@@ -72,8 +72,8 @@ def test_bell_operator_matches_csr(rng):
     unstructured random matrix (incl. n not a multiple of the block)."""
     import jax.numpy as jnp
     import numpy as np
-    from cuda_mat_tpu.models.problems import random_diag_nonzero_system
-    from cuda_mat_tpu.ops.operators import BELLOperator
+    from cuda_mat.models.problems import random_diag_nonzero_system
+    from cuda_mat.ops.operators import BELLOperator
 
     a, _ = random_diag_nonzero_system(300, prob_of_zero=0.97, seed=7)
     op = BELLOperator.from_csr(a, bs=64, dtype=jnp.float64)
@@ -86,9 +86,9 @@ def test_bell_block_structured_solve(rng):
     """Block-diagonal-dominant system through the generic solver with the
     BELL operator format."""
     import numpy as np
-    from cuda_mat_tpu.config import SolverConfig
-    from cuda_mat_tpu.formats.csr import CSRMatrix
-    from cuda_mat_tpu.solvers.bicgstab import bicgstab
+    from cuda_mat.config import SolverConfig
+    from cuda_mat.formats.csr import CSRMatrix
+    from cuda_mat.solvers.bicgstab import bicgstab
 
     n, bs = 256, 32
     d = np.zeros((n, n))
@@ -102,25 +102,33 @@ def test_bell_block_structured_solve(rng):
     assert np.linalg.norm(b - a.matvec(res.x)) / np.linalg.norm(b) < 1e-8
 
 
-def test_factory_prefers_bell_on_tpu_for_blocky(monkeypatch):
-    """The TPU heuristic picks BELL when nnz cluster into few 128x128 blocks,
-    and dense when they don't (small n) — exercised by faking the backend."""
-    import jax
-    import numpy as np
-    from cuda_mat_tpu.formats.csr import CSRMatrix
-    from cuda_mat_tpu.ops import operators as ops
+@pytest.mark.parametrize("n,m,offsets", [
+    (50, 50, (0,)),
+    (50, 50, (-1, 0, 1)),
+    (64, 64, (-8, -1, 0, 1, 8)),
+    (40, 40, (-39, 0, 39)),          # corner-only diagonals
+    (30, 45, (0, 3, 14)),            # wide: columns past the last row
+    (45, 30, (-14, -2, 0)),          # tall: rows past the last column
+    (37, 37, (2, 5)),                # no main diagonal, upper only
+    (33, 20, (-30, -7, 4, 19)),      # tall, offsets on both sides
+])
+def test_dia_single_pass_matches_host_f64(n, m, offsets, rng):
+    """DIAOperator.matvec — one sum of shifted slices of the zero-extended x
+    — equals the host float64 CSR product over offsets and (rectangular)
+    shapes, including diagonals that run off either edge."""
+    from cuda_mat.formats.coo import COOMatrix
 
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    rng = np.random.default_rng(11)
-    # blocky: nonzeros confined to the block diagonal of a 16-block grid
-    n, bs = 2048, 128
-    d = np.zeros((n, n))
-    for i in range(0, n, bs):
-        d[i:i + bs, i:i + bs] = rng.standard_normal((bs, bs))
-    blocky = ops.make_operator(CSRMatrix.from_dense(d), dtype=np.float64)
-    assert isinstance(blocky, ops.BELLOperator)
-    # scattered: uniform random fill touches nearly every block -> dense
-    d2 = np.where(rng.random((512, 512)) > 0.99,
-                  rng.standard_normal((512, 512)), 0.0) + np.eye(512)
-    dense = ops.make_operator(CSRMatrix.from_dense(d2), dtype=np.float64)
-    assert isinstance(dense, ops.DenseOperator)
+    rows, cols = [], []
+    for off in offsets:
+        i = np.arange(max(0, -off), min(n, m - off))
+        rows.append(i)
+        cols.append(i + off)
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    a = CSRMatrix.from_coo(COOMatrix(n, m, rows, cols,
+                                     rng.uniform(-2.0, 2.0, rows.shape[0])))
+    op = make_operator(a, dtype=jnp.float64, format="dia")
+    assert isinstance(op, DIAOperator)
+    x = rng.standard_normal(m)
+    y = jax.jit(lambda o, xx: o.matvec(xx))(op, jnp.asarray(x))
+    np.testing.assert_allclose(np.asarray(y), a.matvec(x), rtol=1e-13,
+                               atol=1e-13)

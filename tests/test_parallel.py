@@ -7,14 +7,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cuda_mat_tpu.config import SolverConfig
-from cuda_mat_tpu.models.problems import banded_laplacian
-from cuda_mat_tpu.parallel.mesh import make_mesh
-from cuda_mat_tpu.parallel.partition import RowPartitionedBanded
-from cuda_mat_tpu.parallel.dist_solver import (dist_bicgstab, dist_spmv,
+from cuda_mat.config import SolverConfig
+from cuda_mat.models.problems import banded_laplacian
+from cuda_mat.parallel.mesh import make_mesh
+from cuda_mat.parallel.partition import RowPartitionedBanded
+from cuda_mat.parallel.dist_solver import (dist_bicgstab, dist_spmv,
                                                make_dist_spmv)
-from cuda_mat_tpu.reference.cpu_solvers import bicgstab_hform_cpu
-from cuda_mat_tpu.solvers.bicgstab import bicgstab
+from cuda_mat.reference.cpu_solvers import bicgstab_hform_cpu
+from cuda_mat.solvers.bicgstab import bicgstab
 
 
 needs_8 = pytest.mark.skipif(len(jax.devices()) < 8,
@@ -133,7 +133,7 @@ def test_dist_block_jacobi_ilu(lap, ndev, rng):
 def test_dist_bjacobi_single_shard_matches_global_ilu(lap, rng):
     """With one shard, block-Jacobi ILU(0) IS global ILU(0): trajectory must
     match the single-chip preconditioned solver."""
-    from cuda_mat_tpu.solvers.bicgstab import bicgstab_lu_precond
+    from cuda_mat.solvers.bicgstab import bicgstab_lu_precond
 
     b = rng.uniform(1.0, 5.0, lap.n)
     cfg = SolverConfig(maxit=2000, tol=1e-6, precond="bjacobi_ilu0",
@@ -156,8 +156,8 @@ def test_dist_rejects_plain_ilu0(lap):
 @needs_8
 def test_dist_general_allgather(rng):
     """Non-banded matrix → ELL partition + all-gathered x."""
-    from cuda_mat_tpu.formats.csr import CSRMatrix
-    from cuda_mat_tpu.models.problems import gen_rand_csr_matrix
+    from cuda_mat.formats.csr import CSRMatrix
+    from cuda_mat.models.problems import gen_rand_csr_matrix
 
     a0 = gen_rand_csr_matrix(200, 200, 0.9, 0.5, 2.0, seed=17)
     a = CSRMatrix.from_dense(a0.to_dense() + 100 * np.eye(200))
@@ -178,7 +178,7 @@ def test_dist_general_allgather(rng):
 @needs_8
 def test_dist_auto_falls_back_to_allgather(rng):
     """A matrix with too many diagonals auto-selects the all-gather path."""
-    from cuda_mat_tpu.formats.csr import CSRMatrix
+    from cuda_mat.formats.csr import CSRMatrix
 
     rng2 = np.random.default_rng(3)
     d = np.where(rng2.random((120, 120)) > 0.9, rng2.standard_normal((120, 120)),
@@ -191,7 +191,7 @@ def test_dist_auto_falls_back_to_allgather(rng):
 
 @needs_8
 def test_dist_ppermute_mode_rejects_general(rng):
-    from cuda_mat_tpu.formats.csr import CSRMatrix
+    from cuda_mat.formats.csr import CSRMatrix
 
     rng2 = np.random.default_rng(4)
     d = np.where(rng2.random((64, 64)) > 0.8, 1.0, 0.0) + 40 * np.eye(64)
@@ -199,36 +199,6 @@ def test_dist_ppermute_mode_rejects_general(rng):
     with pytest.raises(ValueError):
         dist_bicgstab(a, np.ones(64), make_mesh(8), SolverConfig(),
                       halo_mode="ppermute")
-
-
-@needs_8
-@pytest.mark.parametrize("ndev", [2, 8])
-def test_dist_spmv_pallas_engine(lap, ndev, rng):
-    """Per-shard Pallas block-halo kernel inside shard_map (interpret mode on
-    the CPU mesh) == host matvec, including the ppermute halo hand-off into
-    the kernel's pad blocks."""
-    mesh = make_mesh(ndev)
-    x = rng.standard_normal(lap.n)
-    y = dist_spmv(lap, x, mesh, local_engine="pallas", interpret=True)
-    np.testing.assert_allclose(y, lap.matvec(x), rtol=1e-12, atol=1e-12)
-
-
-@needs_8
-def test_dist_bicgstab_pallas_engine_matches_xla(lap, rng):
-    """Full distributed solve with the Pallas local SpMV == the XLA local
-    SpMV trajectory (same algorithm, same collectives)."""
-    mesh = make_mesh(4)
-    b = rng.uniform(1.0, 5.0, lap.n)
-    cfg = SolverConfig(maxit=500, tol=1e-8)
-    r_x = dist_bicgstab(lap, b, mesh, cfg, local_engine="xla")
-    r_p = dist_bicgstab(lap, b, mesh, cfg, local_engine="pallas")
-    assert r_p.converged
-    # the two local-matvec formulations differ by ~1 ulp per product (XLA
-    # fuses the multiply-adds differently), which BiCGSTAB amplifies late in
-    # the trajectory — iteration counts agree only approximately
-    assert abs(r_p.iters - r_x.iters) <= 5
-    rel = np.linalg.norm(b - lap.matvec(r_p.x)) / np.linalg.norm(b)
-    assert rel < 1e-7
 
 
 @needs_8
@@ -240,7 +210,7 @@ def test_overlap_split_matches_unsplit(lap, rng):
 
     from jax.sharding import PartitionSpec as P
 
-    from cuda_mat_tpu.parallel.dist_solver import _make_local_matvec
+    from cuda_mat.parallel.dist_solver import _make_local_matvec
 
     mesh = make_mesh(4)
     axis = mesh.axis_names[0]
@@ -292,8 +262,8 @@ def test_weak_scaling_harness_runs(capsys):
 @needs_8
 def test_dist_ilu0_neumann(lap, rng):
     """Distributed Neumann-series ILU(0): converges and matches the
-    single-chip ilu0_neumann trajectory (VERDICT r1 #3)."""
-    from cuda_mat_tpu.solvers.bicgstab import solve
+    single-chip ilu0_neumann trajectory."""
+    from cuda_mat.solvers.bicgstab import solve
 
     b = rng.uniform(1.0, 5.0, lap.n)
     cfg = SolverConfig(maxit=2000, tol=1e-8, precond="ilu0_neumann",
@@ -307,21 +277,8 @@ def test_dist_ilu0_neumann(lap, rng):
     assert r < 1e-6
 
 
-@needs_8
-def test_dist_ilu0_neumann_pallas_engine(lap, rng):
-    b = rng.uniform(1.0, 5.0, lap.n)
-    cfg = SolverConfig(maxit=2000, tol=1e-8, precond="ilu0_neumann",
-                       neumann_terms=3)
-    r_p = dist_bicgstab(lap, b, make_mesh(8), cfg, local_engine="pallas")
-    r_x = dist_bicgstab(lap, b, make_mesh(8), cfg, local_engine="xla")
-    assert r_p.converged
-    assert abs(r_p.iters - r_x.iters) <= 3
-    rel = np.linalg.norm(b - lap.matvec(r_p.x)) / np.linalg.norm(b)
-    assert rel < 1e-6
-
-
 def test_dist_ilu0_neumann_rejects_general(rng):
-    from cuda_mat_tpu.models.problems import random_diag_nonzero_system
+    from cuda_mat.models.problems import random_diag_nonzero_system
 
     a, b = random_diag_nonzero_system(64, prob_of_zero=0.7)
     cfg = SolverConfig(maxit=50, precond="ilu0_neumann")
@@ -329,84 +286,42 @@ def test_dist_ilu0_neumann_rejects_general(rng):
         dist_bicgstab(a, b, make_mesh(min(4, len(jax.devices()))), cfg)
 
 
-@needs_8
-def test_pallas_overlap_split_matches_unsplit(lap, rng):
-    """The Pallas local engine's overlap form (kernel on local-only x +
-    XLA-recomputed 2w boundary rows) is bitwise identical to the r2
-    serializing form (halos scattered into the kernel pad blocks before the
-    launch) — same per-row multiply-add order, different dependency graph
-    (VERDICT r2 next-round #2)."""
-    from functools import partial as _partial
-
-    from jax.sharding import PartitionSpec as P
-
-    from cuda_mat_tpu.parallel.dist_solver import (_from_carry,
-                                                   _make_local_matvec_pallas,
-                                                   _pallas_blocks, _to_carry)
-
-    ndev = 4
-    mesh = make_mesh(ndev)
-    axis = mesh.axis_names[0]
-    blk, sub = _pallas_blocks(lap.to_dia().bandwidth, interpret=True)
-    part = RowPartitionedBanded.from_matrix(lap, ndev, align=blk)
-    sh = jax.sharding.NamedSharding(mesh, P(axis))
-    data = tuple(jax.device_put(jnp.asarray(part.data[k]), sh)
-                 for k in range(len(part.offsets)))
-    xh = rng.standard_normal(lap.n)
-    x = jax.device_put(jnp.asarray(_to_carry(
-        part.pad_vector(xh), ndev, part.shard_rows, blk)), sh)
-    out = []
-    for overlap in (False, True):
-        mv = _make_local_matvec_pallas(part.offsets, part.halo,
-                                       part.shard_rows, ndev, axis, blk, sub,
-                                       interpret=True, overlap=overlap)
-        f = jax.jit(_partial(jax.shard_map, mesh=mesh,
-                             in_specs=((P(axis),) * len(data), P(axis)),
-                             out_specs=P(axis), check_vma=False)(
-            lambda d, xl: mv(d, xl)))
-        out.append(np.asarray(f(data, x)))
-    np.testing.assert_array_equal(out[0], out[1])
-    # and both match the host oracle
-    np.testing.assert_allclose(
-        part.unpad_vector(_from_carry(out[1], ndev, part.shard_rows, blk)),
-        lap.matvec(xh), rtol=1e-12, atol=1e-12)
-
-
 # ---------------------------------------------------------------------------
-# Distributed gap-strided constant-stencil engine (VERDICT r2 #1)
+# Distributed gap-strided constant-stencil engine
 # ---------------------------------------------------------------------------
 
 
 @pytest.fixture(scope="module")
 def grid():
-    from cuda_mat_tpu.models.problems import grid_laplacian
+    from cuda_mat.models.problems import grid_laplacian
 
-    return grid_laplacian(64, 126)  # n=8064; stride=128, np_true=8192
+    return grid_laplacian(64, 126)  # n=8064; stride=127, np_true=8128
 
 
 def test_partition_stencil_plan(grid):
-    from cuda_mat_tpu.parallel.partition import RowPartitionedStencil
+    from cuda_mat.parallel.partition import RowPartitionedStencil
 
     part = RowPartitionedStencil.from_matrix(grid, 8)
-    assert part.stride == 128 and part.np_true == 64 * 128
-    assert part.shard_rows % part.block == 0
+    assert part.stride == 127 and part.np_true == 64 * 127
+    assert part.shard_rows % part.stride == 0     # whole grid rows per shard
     assert part.npad == 8 * part.shard_rows
-    assert part.block % part.stride == 0          # per-block gap mask
-    assert part.halo <= part.sub
-    # gap mask: 1 on true columns, 0 on gap columns, every stride period
-    gm = part.gapmask.reshape(-1, part.stride)
-    np.testing.assert_array_equal(gm[:, :126], 1.0)
-    np.testing.assert_array_equal(gm[:, 126:], 0.0)
+    assert part.halo == part.stride <= part.shard_rows
+    # gap cells (and the partition's padding rows) are zero
+    wide = RowPartitionedStencil.from_matrix(grid, 3, gap=4)
+    assert wide.stride == 130 and wide.npad == 3 * 22 * 130
+    g = wide.pad_vector(np.ones(grid.n)).reshape(-1, 130)
+    np.testing.assert_array_equal(g[:64, :126], 1.0)
+    assert not g[:, 126:].any() and not g[64:].any()
     # round trip through the strided layout
     v = np.arange(part.n, dtype=np.float64)
     np.testing.assert_array_equal(part.unpad_vector(part.pad_vector(v)), v)
 
 
 def test_partition_stencil_rejects_nonstencil(lap):
-    from cuda_mat_tpu.parallel.partition import RowPartitionedStencil
+    from cuda_mat.parallel.partition import RowPartitionedStencil
 
     # banded_laplacian(40) is a 1-D band with varying diagonal data pattern
-    from cuda_mat_tpu.models.problems import random_diag_nonzero_system
+    from cuda_mat.models.problems import random_diag_nonzero_system
 
     a, _ = random_diag_nonzero_system(64, prob_of_zero=0.7)
     with pytest.raises(ValueError):
@@ -414,35 +329,36 @@ def test_partition_stencil_rejects_nonstencil(lap):
 
 
 @needs_8
-@pytest.mark.parametrize("ndev", [2, 4, 8])
+@pytest.mark.parametrize("ndev", [1, 2, 4, 8])
 def test_dist_spmv_stencil_engine(grid, ndev, rng):
-    """Distributed gap-strided stencil kernel == host matvec, including the
-    ppermute halo hand-off and the shard-base tail mask."""
+    """Distributed gap-strided stencil == host matvec, including the
+    ppermute halo hand-off and the padding-row mask."""
     mesh = make_mesh(ndev)
     x = rng.standard_normal(grid.n)
-    y = dist_spmv(grid, x, mesh, local_engine="stencil", interpret=True)
+    y = dist_spmv(grid, x, mesh, local_engine="stencil")
     np.testing.assert_allclose(y, grid.matvec(x), rtol=1e-12, atol=1e-12)
 
 
 @needs_8
 def test_dist_spmv_stencil_global_tail(rng):
-    """np_true not divisible by the shard size: the global strided tail
-    [np_true, npad) lives in the last shard and must be masked with the
-    shard's global base row, not its local one."""
-    from cuda_mat_tpu.models.problems import grid_laplacian
+    """Grid rows not divisible by the shard count: the partition's padding
+    rows live in the last shard and must be masked with the shard's global
+    row index, not its local one."""
+    from cuda_mat.models.problems import grid_laplacian
 
-    a = grid_laplacian(63, 126)  # np_true=8064, shard_rows=1024, npad=8192
+    a = grid_laplacian(63, 126)  # 63 grid rows over 8 shards of 8 rows
     mesh = make_mesh(8)
     x = rng.standard_normal(a.n)
-    y = dist_spmv(a, x, mesh, local_engine="stencil", interpret=True)
+    y = dist_spmv(a, x, mesh, local_engine="stencil")
     np.testing.assert_allclose(y, a.matvec(x), rtol=1e-12, atol=1e-12)
 
 
 @needs_8
 def test_dist_bicgstab_stencil_matches_single_chip(grid, rng):
     """Distributed stencil-engine solve tracks the single-chip
-    ConstStencilOperator solve (same kernel, psum dots reorder reductions)."""
-    from cuda_mat_tpu.solvers.bicgstab import solve
+    ConstStencilOperator solve (same stencil, psum dots reorder
+    reductions)."""
+    from cuda_mat.solvers.bicgstab import solve
 
     b = rng.uniform(1.0, 5.0, grid.n)
     cfg = SolverConfig(maxit=1000, tol=1e-8)
@@ -460,25 +376,26 @@ def test_dist_bicgstab_stencil_matches_single_chip(grid, rng):
 
 @needs_8
 def test_dist_stencil_neumann_uses_fused_msolve_kernel(grid, rng, monkeypatch):
-    """The distributed const-factor Neumann msolve selects the one-launch
-    fused kernel (one ppermute pair per application, exact diagonal) and
-    tracks the single-chip kernel-mode trajectory."""
-    from cuda_mat_tpu.parallel import dist_solver
-    from cuda_mat_tpu.solvers.bicgstab import solve
+    """The distributed const-factor Neumann msolve applies each triangle's
+    whole series as one stencil (P_l, P_u on A's layout, exact diagonal)
+    and tracks the single-chip fused-series trajectory."""
+    from cuda_mat.parallel import dist_solver
+    from cuda_mat.solvers.bicgstab import solve
 
     calls = []
-    orig = dist_solver._make_local_msolve_kernel
+    orig = dist_solver._make_local_matvec_stencil
 
     def spy(*a, **kw):
-        calls.append(1)
+        calls.append(kw.get("sterms"))
         return orig(*a, **kw)
 
-    monkeypatch.setattr(dist_solver, "_make_local_msolve_kernel", spy)
+    monkeypatch.setattr(dist_solver, "_make_local_matvec_stencil", spy)
     b = rng.uniform(1.0, 5.0, grid.n)
     cfg = SolverConfig(maxit=2000, tol=1e-8, precond="ilu0_neumann",
                        neumann_terms=3)
     r_d = dist_bicgstab(grid, b, make_mesh(8), cfg, local_engine="stencil")
-    assert calls, "fused msolve kernel not selected"
+    assert len(calls) == 3 and calls[0] is None, "fused series not selected"
+    assert all(len(st) > 3 for st in calls[1:])   # the series polynomials
     r_s = solve(grid, b, cfg, format="stencil")
     assert r_d.converged and r_s.converged
     assert abs(r_d.iters - r_s.iters) <= max(3, 0.15 * r_s.iters)
@@ -488,109 +405,10 @@ def test_dist_stencil_neumann_uses_fused_msolve_kernel(grid, rng, monkeypatch):
 
 
 @needs_8
-def test_dist_fuse_blas1_matches_off(grid, rng):
-    """The distributed BLAS1-prologue msolve (config.fuse_blas1: p-update /
-    r1-production folded into the fused kernel launch, VERDICT r3 #5) tracks
-    the separate-axpy distributed solve: same collective pattern (one
-    ppermute pair per msolve), combination differs by <= 1 FMA-contraction
-    ulp."""
-    b = rng.uniform(1.0, 5.0, grid.n)
-    cfg = SolverConfig(maxit=2000, tol=1e-8, precond="ilu0_neumann",
-                       neumann_terms=3)
-    r_on = dist_bicgstab(grid, b, make_mesh(8), cfg.replace(fuse_blas1=True),
-                         local_engine="stencil")
-    r_off = dist_bicgstab(grid, b, make_mesh(8),
-                          cfg.replace(fuse_blas1=False),
-                          local_engine="stencil")
-    assert r_on.converged and r_off.converged
-    assert abs(r_on.iters - r_off.iters) <= max(3, 0.15 * r_off.iters)
-    np.testing.assert_allclose(r_on.x, r_off.x, rtol=1e-6, atol=1e-8)
-    rel = np.linalg.norm(b - grid.matvec(r_on.x)) / np.linalg.norm(b)
-    assert rel < 1e-7
-
-
-@needs_8
-@pytest.mark.parametrize("ndev", [1, 4])
-def test_dist_msolve_fma_kernel_matches_plain(grid, rng, ndev):
-    """_make_local_msolve_kernel(fma=True) returns (p, y) equal to the XLA
-    combination + plain fused-kernel msolve on the carry layout (interior
-    bitwise in f64 interpret up to FMA contraction; boundary rows within the
-    documented ulp band)."""
-    from functools import partial as _partial
-
-    from jax.sharding import PartitionSpec as P
-
-    from cuda_mat_tpu.ops.pallas_stencil import (
-        const_factor_terms, extend_gapmask, msolve_halo, neumann_poly_terms,
-        plan_const_neumann_layout, strided_offsets)
-    from cuda_mat_tpu.parallel.dist_solver import (_make_local_msolve_kernel,
-                                                   _to_carry)
-    from cuda_mat_tpu.parallel.partition import RowPartitionedStencil
-    from cuda_mat_tpu.precond.preconditioners import neumann_factors
-
-    mesh = make_mesh(ndev)
-    axis = mesh.axis_names[0]
-    part = RowPartitionedStencil.from_matrix(grid, ndev)
-    plan = plan_const_neumann_layout(part.terms, 3, part.c_grid, part.stride)
-    if plan[0] > part.sub or part.block > plan[1]:
-        part = RowPartitionedStencil.from_matrix(grid, ndev, min_sub=plan[0],
-                                                 block_target=plan[1])
-    low, up, diag_m = neumann_factors(grid)
-    sts = []
-    for f in (low, up):
-        t, _ = const_factor_terms(f.to_dia(max_diags=128), part.c_grid,
-                                  part.stride)
-        pt = neumann_poly_terms(t, 3, part.c_grid, part.stride)
-        sts.append(strided_offsets(pt, part.c_grid, part.stride))
-    hpad = msolve_halo(sts[1])
-    s, blk = part.shard_rows, part.block
-    sh = jax.sharding.NamedSharding(mesh, P(axis))
-    gap_ext = jax.device_put(
-        jnp.asarray(extend_gapmask(part.gapmask, hpad), jnp.float64),
-        jax.sharding.NamedSharding(mesh, P()))
-    invd_g = np.concatenate([np.ones(blk),
-                             part.strided_scatter(1.0 / diag_m, fill=1.0),
-                             np.ones(blk)])
-    d_pad = np.stack([invd_g[i * s: i * s + s + 2 * blk]
-                      for i in range(ndev)]).reshape(-1)
-    d_pad = jax.device_put(jnp.asarray(d_pad, jnp.float64), sh)
-
-    def carry(v):
-        return jax.device_put(jnp.asarray(_to_carry(
-            part.pad_vector(v), ndev, s, blk)), sh)
-
-    av = carry(rng.standard_normal(grid.n))
-    bv = carry(rng.standard_normal(grid.n))
-    cv = carry(rng.standard_normal(grid.n))
-    c1 = jnp.asarray(0.37, jnp.float64)
-    c2 = jnp.asarray(-1.9, jnp.float64)
-    ms = _make_local_msolve_kernel(part, axis, interpret=True,
-                                   terms_l=sts[0], terms_u=sts[1])
-    msf = _make_local_msolve_kernel(part, axis, interpret=True,
-                                    terms_l=sts[0], terms_u=sts[1], fma=True)
-    f_plain = jax.jit(_partial(jax.shard_map, mesh=mesh,
-                               in_specs=(P(), P(axis), P(axis)),
-                               out_specs=P(axis), check_vma=False)(ms))
-    f_fma = jax.jit(_partial(
-        jax.shard_map, mesh=mesh,
-        in_specs=(P(), P(axis), P(axis), P(), P(axis), P(), P(axis)),
-        out_specs=(P(axis), P(axis)), check_vma=False)(msf))
-    p_ref = av + c1 * (bv + c2 * cv)
-    y_ref = np.asarray(f_plain(gap_ext, d_pad, p_ref))
-    p_got, y_got = f_fma(gap_ext, d_pad, av, c1, bv, c2, cv)
-    scale = max(1.0, float(np.abs(y_ref).max()))
-    tol = 16 * np.finfo(np.float64).eps * scale
-    np.testing.assert_allclose(np.asarray(p_got), np.asarray(p_ref),
-                               rtol=0, atol=tol)
-    np.testing.assert_allclose(np.asarray(y_got), y_ref, rtol=0, atol=tol)
-
-
-@needs_8
 def test_dist_stencil_ilu0_neumann(grid, rng):
-    """The TPU production config — flagship stencil matvec + restrided
-    Neumann-ILU(0) factors — distributes and tracks the single-chip
-    trajectory."""
-    from cuda_mat_tpu.solvers.bicgstab import solve
+    """The production config — flagship stencil matvec + Neumann-ILU(0)
+    factors — distributes and tracks the single-chip trajectory."""
+    from cuda_mat.solvers.bicgstab import solve
 
     b = rng.uniform(1.0, 5.0, grid.n)
     cfg = SolverConfig(maxit=2000, tol=1e-8, precond="ilu0_neumann",
@@ -606,6 +424,24 @@ def test_dist_stencil_ilu0_neumann(grid, rng):
     assert rel < 1e-7
 
 
+@needs_8
+@pytest.mark.parametrize("ndev", [1, 2, 4])
+def test_dist_xla_engine_matches_single_chip(ndev, rng):
+    """The distributed XLA banded engine (halo-exchange DIA, psum dots) on
+    1, 2 and 4 virtual devices solves like the single-chip DIA path."""
+    from cuda_mat.models.problems import laplacian_2d
+    from cuda_mat.solvers.bicgstab import solve
+
+    a = laplacian_2d(24)
+    b = rng.uniform(1.0, 5.0, a.n)
+    cfg = SolverConfig(maxit=2000, tol=1e-8, precond="jacobi")
+    r_d = dist_bicgstab(a, b, make_mesh(ndev), cfg, local_engine="xla")
+    r_s = solve(a, b, cfg, format="dia")
+    assert r_d.converged and r_s.converged
+    assert abs(r_d.iters - r_s.iters) <= 1
+    np.testing.assert_allclose(r_d.x, r_s.x, rtol=1e-6, atol=1e-9)
+
+
 def test_dist_stencil_rejects_bjacobi(grid):
     cfg = SolverConfig(maxit=10, precond="bjacobi_ilu0")
     with pytest.raises(ValueError, match="stencil"):
@@ -615,7 +451,7 @@ def test_dist_stencil_rejects_bjacobi(grid):
 
 
 def test_dist_stencil_rejects_nonstencil(rng):
-    from cuda_mat_tpu.models.problems import random_diag_nonzero_system
+    from cuda_mat.models.problems import random_diag_nonzero_system
 
     a, b = random_diag_nonzero_system(64, prob_of_zero=0.7)
     cfg = SolverConfig(maxit=10)
@@ -625,134 +461,72 @@ def test_dist_stencil_rejects_nonstencil(rng):
 
 
 @needs_8
-def test_stencil_overlap_split_matches_unsplit(grid, rng):
-    """The stencil engine's overlap form (kernel on local-only x + XLA
-    boundary-row recompute) is bitwise identical to the scatter form — same
-    multiply-add order, different dependency graph."""
+@pytest.mark.parametrize("data", ["float", "dyadic"])
+def test_dist_const_msolve_matches_host_series(grid, data, rng):
+    """The distributed constant-factor Neumann msolve ``P_u(inv_d ∘ P_l f)``
+    on 4 shards (a halo exchange per stencil) equals the two series
+    polynomials applied in float64 on the host over the whole
+    partition-padded vector.  With dyadic data (few-bit coefficients, inv_d
+    and f) every product and sum is exact, so there the two must agree
+    bitwise: every row reads its operands from the right place, halos and
+    masks included."""
     from functools import partial as _partial
 
     from jax.sharding import PartitionSpec as P
 
-    from cuda_mat_tpu.parallel.dist_solver import (_from_carry,
-                                                   _make_local_matvec_stencil,
-                                                   _to_carry)
-    from cuda_mat_tpu.parallel.partition import RowPartitionedStencil
+    from cuda_mat.ops.stencil import (const_factor_terms, neumann_poly_terms,
+                                      series_gap, strided_offsets)
+    from cuda_mat.parallel.dist_solver import _make_local_msolve_stencil
+    from cuda_mat.parallel.partition import RowPartitionedStencil
+    from cuda_mat.precond.preconditioners import neumann_factors
 
-    ndev = 4
-    mesh = make_mesh(ndev)
+    k = 3
+    mesh = make_mesh(4)
     axis = mesh.axis_names[0]
-    part = RowPartitionedStencil.from_matrix(grid, ndev)
-    sh = jax.sharding.NamedSharding(mesh, P(axis))
-    gap = jax.device_put(jnp.asarray(part.gapmask, jnp.float64),
-                         jax.sharding.NamedSharding(mesh, P()))
-    xh = rng.standard_normal(grid.n)
-    x = jax.device_put(jnp.asarray(_to_carry(
-        part.pad_vector(xh), ndev, part.shard_rows, part.block)), sh)
-    out = []
-    for overlap in (False, True):
-        mv = _make_local_matvec_stencil(part, axis, interpret=True,
-                                        overlap=overlap)
-        f = jax.jit(_partial(jax.shard_map, mesh=mesh,
-                             in_specs=(P(), P(axis)),
-                             out_specs=P(axis), check_vma=False)(
-            lambda g, xl: mv(g, xl)))
-        out.append(np.asarray(f(gap, x)))
-    np.testing.assert_array_equal(out[0], out[1])
-    np.testing.assert_allclose(
-        part.unpad_vector(_from_carry(out[1], ndev, part.shard_rows,
-                                      part.block)),
-        grid.matvec(xh), rtol=1e-12, atol=1e-12)
-
-
-@needs_8
-def test_msolve_kernel_overlap_matches_scatter(grid, rng):
-    """The fused msolve kernel's overlap form (kernel on the local-only
-    carry + XLA two-stage boundary recompute) matches the scatter form
-    (halos written into the pad blocks before the launch) — VERDICT r3 #2:
-    takes the msolve's ppermute pair off the critical path.  Interior rows
-    must be BITWISE equal (proves the split's indexing); the recomputed
-    boundary rows are allowed <= 2 ulp: the series coefficients are general
-    floats, so XLA's FMA-contraction choice may differ between the two
-    programs (the matvec splits' ±1/2^k scalars are FMA-exact, hence their
-    stricter tests)."""
-    from functools import partial as _partial
-
-    from jax.sharding import PartitionSpec as P
-
-    from cuda_mat_tpu.ops.pallas_stencil import (
-        const_factor_terms, extend_gapmask, msolve_halo, neumann_poly_terms,
-        strided_offsets)
-    from cuda_mat_tpu.parallel.dist_solver import (_make_local_msolve_kernel,
-                                                   _to_carry)
-    from cuda_mat_tpu.parallel.partition import RowPartitionedStencil
-    from cuda_mat_tpu.precond.preconditioners import neumann_factors
-
-    from cuda_mat_tpu.ops.pallas_stencil import plan_const_neumann_layout
-
-    ndev = 4
-    mesh = make_mesh(ndev)
-    axis = mesh.axis_names[0]
-    part = RowPartitionedStencil.from_matrix(grid, ndev)
-    # widen the halo sub-block for the fused-kernel window (what
-    # make_dist_bicgstab does before selecting the kernel variant)
-    plan = plan_const_neumann_layout(part.terms, 3, part.c_grid, part.stride,
-                                     prefer_mono=True)
-    assert plan is not None
-    if plan[0] > part.sub or part.block > plan[1]:
-        part = RowPartitionedStencil.from_matrix(grid, ndev, min_sub=plan[0],
-                                                 block_target=plan[1])
+    part = RowPartitionedStencil.from_matrix(grid, 4)
+    part = RowPartitionedStencil.from_matrix(
+        grid, 4, gap=series_gap(part.terms, k))
     low, up, diag_m = neumann_factors(grid)
-    sts = []
+    polys = []
     for f in (low, up):
         t, _ = const_factor_terms(f.to_dia(max_diags=128), part.c_grid,
                                   part.stride)
-        pt = neumann_poly_terms(t, 3, part.c_grid, part.stride)
-        sts.append(strided_offsets(pt, part.c_grid, part.stride))
-    hpad = msolve_halo(sts[1])
-    s, blk = part.shard_rows, part.block
-    assert hpad <= blk and max(abs(o) for o, _ in sts[0]) + hpad <= part.sub
+        polys.append(strided_offsets(
+            neumann_poly_terms(t, k, part.c_grid, part.stride), part.c_grid,
+            part.stride))
+    invd = part.strided_scatter(1.0 / diag_m, fill=1.0)
+    if data == "dyadic":
+        polys = [tuple((o, np.round(s * 64) / 64) for o, s in p)
+                 for p in polys]
+        invd = np.round(invd * 16) / 16
+        fh = part.pad_vector(rng.integers(-8, 9, grid.n) / 8.0)
+    else:
+        fh = part.pad_vector(rng.standard_normal(grid.n))
+
     sh = jax.sharding.NamedSharding(mesh, P(axis))
-    gap_ext = jax.device_put(
-        jnp.asarray(extend_gapmask(part.gapmask, hpad), jnp.float64),
-        jax.sharding.NamedSharding(mesh, P()))
-    invd_g = np.concatenate([np.ones(blk),
-                             part.strided_scatter(1.0 / diag_m, fill=1.0),
-                             np.ones(blk)])
-    d_pad = np.stack([invd_g[i * s: i * s + s + 2 * blk]
-                      for i in range(ndev)]).reshape(-1)
-    d_pad = jax.device_put(jnp.asarray(d_pad, jnp.float64), sh)
-    x = jax.device_put(jnp.asarray(_to_carry(
-        part.pad_vector(rng.standard_normal(grid.n)), ndev, s, blk)), sh)
-    out = []
-    for overlap in (False, True):
-        ms = _make_local_msolve_kernel(part, axis, interpret=True,
-                                       terms_l=sts[0], terms_u=sts[1],
-                                       overlap=overlap)
-        f = jax.jit(_partial(jax.shard_map, mesh=mesh,
-                             in_specs=(P(), P(axis), P(axis)),
-                             out_specs=P(axis), check_vma=False)(ms))
-        out.append(np.asarray(f(gap_ext, d_pad, x)))
-    # boundary reach of the composition (see _make_local_msolve_kernel)
-    lo_l = min(o for o, _ in sts[0])
-    hi_u = max(o for o, _ in sts[1])
-    wl, wr = -lo_l, hi_u
-    edge = np.zeros(s + 2 * blk, bool)
-    edge[blk: blk + wl] = True
-    edge[blk + s - wr: blk + s] = True
-    edge = np.tile(edge, ndev)
-    np.testing.assert_array_equal(out[0][~edge], out[1][~edge])
-    # FMA-contraction noise is absolute at the scale of the O(1)
-    # intermediates (cancellation can leave small outputs), so bound the
-    # boundary rows by a few eps of the intermediate magnitude
-    scale = max(1.0, float(np.abs(out[0]).max()))
-    tol = 8 * np.finfo(out[0].dtype).eps * scale
-    np.testing.assert_allclose(out[0][edge], out[1][edge], rtol=0, atol=tol)
+    f = jax.jit(_partial(jax.shard_map, mesh=mesh,
+                         in_specs=(P(axis), P(axis)), out_specs=P(axis))(
+        _make_local_msolve_stencil(part, axis, *polys)))
+    out = np.asarray(f(jax.device_put(jnp.asarray(invd), sh),
+                       jax.device_put(jnp.asarray(fh), sh)))
+
+    def host_stencil(v, sterms):
+        w = max(abs(o) for o, _ in sterms)
+        ve = np.pad(v, (w, w))
+        y = sum(s * ve[w + o: w + o + v.size] for o, s in sterms)
+        return part.pad_vector(part.unpad_vector(y))     # gap + padding mask
+
+    ref = host_stencil(invd * host_stencil(fh, polys[0]), polys[1])
+    if data == "dyadic":
+        np.testing.assert_array_equal(out, ref)
+    else:
+        np.testing.assert_allclose(out, ref, rtol=1e-12, atol=1e-12)
 
 
 @needs_8
 def test_dist_stencil_neumann_exact_pattern_factors(grid, rng):
     """neumann_const_factors=False keeps the restrided exact-pattern factor
-    path (DIA kernels over restrided streams) working distributed."""
+    path (XLA DIA engine over restrided streams) working distributed."""
     b = rng.uniform(1.0, 5.0, grid.n)
     cfg = SolverConfig(maxit=2000, tol=1e-6, precond="ilu0_neumann",
                        neumann_terms=3, neumann_const_factors=False)
@@ -767,7 +541,7 @@ def test_dist_milu_omega_matches_single_chip(grid, rng):
     """milu_omega flows through the distributed factor path
     (neumann_factors in make_dist_bicgstab) and tracks the single-chip
     trajectory."""
-    from cuda_mat_tpu.solvers.bicgstab import solve
+    from cuda_mat.solvers.bicgstab import solve
 
     b = np.ones(grid.n)
     cfg = SolverConfig(maxit=2000, tol=1e-8, precond="ilu0_neumann",

@@ -1,4 +1,4 @@
-"""PreparedSolver (setup-once / solve-many) tests — VERDICT r4 #1/#2.
+"""PreparedSolver (setup-once / solve-many) tests.
 
 The prepared single-chip solver must be trajectory-identical to the one-shot
 ``solve`` path, reuse its setup across right-hand sides (``solve_refined``
@@ -10,9 +10,9 @@ single-chip one.
 import numpy as np
 import pytest
 
-from cuda_mat_tpu.config import SolverConfig
-from cuda_mat_tpu.solvers.bicgstab import bicgstab, make_solver, solve
-from cuda_mat_tpu.solvers.refine import solve_refined
+from cuda_mat.config import SolverConfig
+from cuda_mat.solvers.bicgstab import bicgstab, make_solver, solve
+from cuda_mat.solvers.refine import solve_refined
 
 
 CFG_ILU = SolverConfig(maxit=2000, tol=1e-6, precond="ilu0")
@@ -74,9 +74,9 @@ def test_prepared_x0_default_is_ones(mat900):
 
 def test_refined_factorizes_once(mat900, monkeypatch):
     """solve_refined builds ONE PreparedSolver: the ILU(0) factorization must
-    run exactly once across all restarts (VERDICT r4 weak #1 — it used to
+    run exactly once across all restarts (it used to
     re-factorize per restart)."""
-    import cuda_mat_tpu.precond.preconditioners as P
+    import cuda_mat.precond.preconditioners as P
 
     calls = {"n": 0}
     real = P._factorize
@@ -95,11 +95,11 @@ def test_refined_factorizes_once(mat900, monkeypatch):
 
 
 def test_refined_distributed_meets_reference_tol(mat10000):
-    """Distributed iterative refinement (VERDICT r4 missing #1): f32 inner
+    """Distributed iterative refinement: f32 inner
     solves through the compiled DistBicgstabSolver + f64 host restarts reach
     the reference contract tol=1e-6 (example.cpp:179-180), and agree with
     the single-chip refined result."""
-    from cuda_mat_tpu.parallel.mesh import make_mesh
+    from cuda_mat.parallel.mesh import make_mesh
 
     cfg = SolverConfig(maxit=2000, tol=1e-6, precond="ilu0_neumann",
                        neumann_terms=3)
@@ -118,9 +118,9 @@ def test_refined_distributed_meets_reference_tol(mat10000):
 
 def test_cli_devices_refine_combination(capsys):
     """--devices N --refine runs distributed refinement (used to silently
-    drop --refine, VERDICT r4 weak #2)."""
-    from cuda_mat_tpu.cli import main
-    from cuda_mat_tpu.models.problems import fixture_path
+    drop --refine)."""
+    from cuda_mat.cli import main
+    from cuda_mat.models.problems import fixture_path
 
     rc = main(["-M", fixture_path("mat900"), "--devices", "2",
                "--precond", "jacobi", "--refine", "--tol", "1e-8"])
@@ -131,8 +131,8 @@ def test_cli_devices_refine_combination(capsys):
 
 
 def test_cli_bicg_refine_errors_loudly(capsys):
-    from cuda_mat_tpu.cli import main
-    from cuda_mat_tpu.models.problems import fixture_path
+    from cuda_mat.cli import main
+    from cuda_mat.models.problems import fixture_path
 
     rc = main(["-M", fixture_path("mat900"), "--solver", "bicg", "--refine"])
     assert rc == 1
@@ -140,8 +140,8 @@ def test_cli_bicg_refine_errors_loudly(capsys):
 
 
 def test_cli_bicg_devices_errors_loudly(capsys):
-    from cuda_mat_tpu.cli import main
-    from cuda_mat_tpu.models.problems import fixture_path
+    from cuda_mat.cli import main
+    from cuda_mat.models.problems import fixture_path
 
     rc = main(["-M", fixture_path("mat900"), "--solver", "bicg",
                "--devices", "2"])
@@ -153,7 +153,7 @@ def test_refined_stops_on_diverging_correction(mat900):
     """A diverging inner solver (garbage corrections) must not burn all
     max_restarts: solve_refined reverts the worsening correction and stops
     with an honest non-converged status (r5 divergence guard)."""
-    from cuda_mat_tpu.solvers.result import SolveResult, SolverStatus
+    from cuda_mat.solvers.result import SolveResult, SolverStatus
 
     calls = {"n": 0}
 
@@ -183,9 +183,9 @@ def test_refined_stops_on_diverging_correction(mat900):
 def test_refined_distributed_stencil_milu():
     """The bench's distributed production path as one CI combination:
     gap-strided stencil engine + MILU(0.96) factors + iterative refinement
-    over the virtual mesh (interpret-mode kernels)."""
-    from cuda_mat_tpu.models.problems import grid_laplacian
-    from cuda_mat_tpu.parallel.mesh import make_mesh
+    over the virtual mesh."""
+    from cuda_mat.models.problems import grid_laplacian
+    from cuda_mat.parallel.mesh import make_mesh
 
     a = grid_laplacian(8, 126)          # 1008 rows, constant 5-pt stencil
     b = np.ones(a.n)

@@ -6,11 +6,11 @@ import pytest
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
-from cuda_mat_tpu.config import SolverConfig
-from cuda_mat_tpu.formats.csr import CSRMatrix
-from cuda_mat_tpu.models.problems import banded_laplacian
-from cuda_mat_tpu.solvers.bicg import bicg
-from cuda_mat_tpu.solvers.bicgstab import bicgstab, solve
+from cuda_mat.config import SolverConfig
+from cuda_mat.formats.csr import CSRMatrix
+from cuda_mat.models.problems import banded_laplacian
+from cuda_mat.solvers.bicg import bicg
+from cuda_mat.solvers.bicgstab import bicgstab, solve
 
 
 def _scipy_solve(a: CSRMatrix, b):
@@ -59,7 +59,7 @@ def test_ilu0_defining_property(mat900):
     """ILU(0) definition: (L·U) agrees with A exactly on A's sparsity pattern
     (scipy's spilu is threshold-based ILUTP and is NOT a valid oracle for
     pattern-based ILU(0))."""
-    from cuda_mat_tpu.reference.cpu_solvers import ilu0_factorize
+    from cuda_mat.reference.cpu_solvers import ilu0_factorize
 
     m = ilu0_factorize(mat900)
     md = np.zeros((900, 900))

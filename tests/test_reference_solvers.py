@@ -4,12 +4,12 @@ reference fixtures at the reference tolerances (SURVEY §4 implication 2/3)."""
 import numpy as np
 import pytest
 
-from cuda_mat_tpu.reference.cpu_solvers import (bicg_cpu, bicgstab_hform_cpu,
+from cuda_mat.reference.cpu_solvers import (bicg_cpu, bicgstab_hform_cpu,
                                                 bicgstab_ilu_cpu,
                                                 bicgstab_split_cpu,
                                                 ilu0_factorize,
                                                 solve_lower_unit, solve_upper)
-from cuda_mat_tpu.models.problems import laplacian_2d
+from cuda_mat.models.problems import laplacian_2d
 
 
 def _residual(a, x, b):
@@ -54,7 +54,7 @@ def test_ilu0_exact_lu_on_dense_pattern():
     """On a fully dense pattern ILU(0) == exact LU."""
     rng = np.random.default_rng(0)
     d = rng.standard_normal((6, 6)) + 6 * np.eye(6)
-    from cuda_mat_tpu.formats.csr import CSRMatrix
+    from cuda_mat.formats.csr import CSRMatrix
 
     a = CSRMatrix.from_dense(d, eps=-1.0)  # keep all entries incl. zeros
     m = ilu0_factorize(a)
@@ -84,7 +84,7 @@ def test_ilu0_triangular_solves(mat900, rng):
 
 
 def test_ilu0_requires_diagonal():
-    from cuda_mat_tpu.formats.csr import CSRMatrix
+    from cuda_mat.formats.csr import CSRMatrix
 
     a = CSRMatrix.from_dense(np.array([[0.0, 1.0], [1.0, 0.0]]))
     with pytest.raises(ValueError):
@@ -101,7 +101,7 @@ def test_bicgstab_ilu_mat3_violates_contract(mat3, vec3):
 
 
 def test_bicgstab_ilu_small_dense_pattern(rng):
-    from cuda_mat_tpu.formats.csr import CSRMatrix
+    from cuda_mat.formats.csr import CSRMatrix
 
     d = rng.standard_normal((8, 8)) + 8 * np.eye(8)
     a = CSRMatrix.from_dense(d, eps=-1.0)
@@ -132,7 +132,7 @@ def test_bicg_matches_omp_semantics_small():
     """x is not updated on the converged iteration (reference
     bicstab.cpp:164-168): starting at the exact solution, x stays exactly the
     initial guess."""
-    from cuda_mat_tpu.formats.csr import CSRMatrix
+    from cuda_mat.formats.csr import CSRMatrix
 
     a = CSRMatrix.from_dense(np.eye(4) * 2.0)
     b = np.full(4, 2.0)  # solution = ones = x0

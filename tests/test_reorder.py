@@ -4,13 +4,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cuda_mat_tpu.config import SolverConfig
-from cuda_mat_tpu.formats.csr import CSRMatrix
-from cuda_mat_tpu.formats.reorder import (bandwidth, permute_csr,
+from cuda_mat.config import SolverConfig
+from cuda_mat.formats.csr import CSRMatrix
+from cuda_mat.formats.reorder import (bandwidth, permute_csr,
                                           permute_vector, rcm_permutation,
                                           unpermute_vector)
-from cuda_mat_tpu.models.problems import banded_laplacian
-from cuda_mat_tpu.solvers.bicgstab import solve
+from cuda_mat.models.problems import banded_laplacian
+from cuda_mat.solvers.bicgstab import solve
 
 
 def _shuffled_laplacian(k, seed=0):

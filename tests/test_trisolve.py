@@ -4,11 +4,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cuda_mat_tpu.models.problems import banded_laplacian, gen_rand_csr_matrix
-from cuda_mat_tpu.ops.trisolve import BlockTriangularSolver
-from cuda_mat_tpu.reference.cpu_solvers import (ilu0_factorize,
+from cuda_mat.models.problems import banded_laplacian, gen_rand_csr_matrix
+from cuda_mat.ops.trisolve import BlockTriangularSolver
+from cuda_mat.reference.cpu_solvers import (ilu0_factorize,
                                                 solve_lower_unit, solve_upper)
-from cuda_mat_tpu.formats.csr import CSRMatrix
+from cuda_mat.formats.csr import CSRMatrix
 
 
 def _check(csr, block, rng, rtol=1e-9):
@@ -46,3 +46,49 @@ def test_general_sparse(rng):
 
 def test_mat900_msolve(mat900, rng):
     _check(mat900, 64, rng)
+
+
+def _setup_tri_rowloop(csr, mvals, block, lower):
+    """Row-by-row reference of ``_block_setup_tri`` (its original form)."""
+    n = csr.n
+    nb = -(-n // block)
+    diag_blocks = np.tile(np.eye(block), (nb, 1, 1))
+    off_rows = [[] for _ in range(nb * block)]
+    for i in range(n):
+        b, ii = divmod(i, block)
+        for k in range(csr.indptr[i], csr.indptr[i + 1]):
+            j, v = int(csr.indices[k]), float(mvals[k])
+            if (lower and j >= i) or (not lower and j < i):
+                continue
+            if j // block == b:
+                diag_blocks[b, ii, j % block] = v
+            else:
+                off_rows[i].append((j, v))
+    kmax = max(1, max(len(r) for r in off_rows))
+    vals = np.zeros((nb, block, kmax))
+    cols = np.zeros((nb, block, kmax), dtype=np.int32)
+    for i, r in enumerate(off_rows):
+        for k, (j, v) in enumerate(r):
+            vals[i // block, i % block, k] = v
+            cols[i // block, i % block, k] = j
+    return np.linalg.inv(diag_blocks), vals, cols
+
+
+@pytest.mark.parametrize("lower", [True, False])
+@pytest.mark.parametrize("case", ["mat900", "general"])
+def test_block_setup_matches_row_loop(case, lower, mat900):
+    """The vectorized host setup places every factor entry exactly where
+    the row-by-row form does."""
+    from cuda_mat.ops.trisolve import _block_setup_tri
+
+    if case == "mat900":
+        csr, block = mat900, 64
+    else:
+        a = gen_rand_csr_matrix(70, 70, 0.8, 0.5, 2.0, seed=4)
+        csr, block = CSRMatrix.from_dense(a.to_dense() + 40 * np.eye(70)), 16
+    m = ilu0_factorize(csr)
+    got = _block_setup_tri(csr, m, block, lower)
+    want = _setup_tri_rowloop(csr, m, block, lower)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)

@@ -4,12 +4,12 @@ phase timer."""
 import numpy as np
 import pytest
 
-from cuda_mat_tpu.utils.norms import csr_mat_norminf, mat_norminf, vec_norminf
-from cuda_mat_tpu.utils.checkpoint import load_checkpoint, save_checkpoint
-from cuda_mat_tpu.utils.dense_qr import (back_substitution, is_consistent,
+from cuda_mat.utils.norms import csr_mat_norminf, mat_norminf, vec_norminf
+from cuda_mat.utils.checkpoint import load_checkpoint, save_checkpoint
+from cuda_mat.utils.dense_qr import (back_substitution, is_consistent,
                                          qr_givens, rank_row_echelon,
                                          solve_qr)
-from cuda_mat_tpu.utils.timing import PhaseTimer
+from cuda_mat.utils.timing import PhaseTimer
 
 
 def test_norms(mat3, rng):
@@ -22,8 +22,8 @@ def test_norms(mat3, rng):
 
 
 def test_checkpoint_roundtrip(tmp_path, mat900, rng):
-    from cuda_mat_tpu.config import SolverConfig
-    from cuda_mat_tpu.solvers.bicgstab import bicgstab
+    from cuda_mat.config import SolverConfig
+    from cuda_mat.solvers.bicgstab import bicgstab
 
     b = rng.uniform(1.0, 5.0, 900)
     res = bicgstab(mat900, b, SolverConfig(maxit=5, tol=1e-14))
@@ -37,8 +37,8 @@ def test_checkpoint_roundtrip(tmp_path, mat900, rng):
 
 def test_checkpoint_resume_converges(tmp_path, mat900, rng):
     """Restarting from a checkpointed iterate continues to convergence."""
-    from cuda_mat_tpu.config import SolverConfig
-    from cuda_mat_tpu.solvers.bicgstab import bicgstab
+    from cuda_mat.config import SolverConfig
+    from cuda_mat.solvers.bicgstab import bicgstab
 
     b = rng.uniform(1.0, 5.0, 900)
     partial = bicgstab(mat900, b, SolverConfig(maxit=10, tol=1e-14))
